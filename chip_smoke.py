@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (perceptor_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the flash-attention kernels from csrc/ with nvcc, then runs five
+phases, each printing one JSON line; any failure raises and the script
+exits non-zero without a result line:
+
+1. kernels      each CUDA kernel against its plain PyTorch version (fp32
+                arithmetic on the same bf16 inputs) at the three attention
+                shapes of the 512px guided step, and off the main path at
+                small shapes (fp32 inputs; strided batch-2 bf16 inputs);
+2. guided_step  the full-width main path (SD-1.x UNet + VAE at 512px, CLIP
+                ViT-B/32, batch 1, random weights from seed 0) for 5 steps:
+                finite latents and loss, exactly 11 launches of each kernel
+                per step, steady ms per step and peak memory;
+3. profile      one step under torch.profiler: device time by kernel and
+                the device's busy share;
+4. route_parity the UNet forward and its latent gradient, and the VAE
+                decode, through the kernels against the plain attention
+                route (and both against an fp32 copy), same weights and
+                inputs, bf16;
+5. timings      each kernel, its plain version and PyTorch's
+                scaled_dot_product_attention at each site, beside the
+                card's bound.
+
+Then the kernel table as one JSON line and, last, the device line. Exits
+non-zero with no result when CUDA is not available.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+STEPS = 5
+# (site, batch, heads, seq, head_dim, launches per guided step)
+SITES = (
+    ("unet_level0_attn1", 1, 8, 4096, 40, 5),
+    ("unet_level1_attn1", 1, 8, 1024, 80, 5),
+    ("vae_mid_attn", 1, 1, 4096, 512, 1),
+)
+# bf16 kernels vs fp32 arithmetic: bf16 keeps 8 mantissa bits, so rounding
+# the output alone costs ~2e-3 of its magnitude, and P / dS are rounded to
+# bf16 before their products; 2e-2 of the reference's largest magnitude
+# leaves a 10x margin while a wrong tile, index or scale errs by O(1) of it.
+KERNEL_RTOL = 2e-2
+LSE_ATOL = 1e-3
+# Off the main path, at small shapes: fp32 inputs (the kernels' scalar
+# path: the plain version's fp32 arithmetic up to summation order, so 1e-4)
+# and bf16 batch-2 inputs viewed from (B, S, H * D) projections, as the
+# UNet passes them (KERNEL_RTOL). (dtype, batch, heads, seq, head_dim)
+FP32_RTOL = 1e-4
+EXTRA_CASES = (
+    ("float32", 1, 2, 256, 40), ("float32", 1, 2, 256, 80), ("float32", 1, 1, 256, 512),
+    ("bfloat16", 2, 2, 1024, 40), ("bfloat16", 2, 2, 1024, 80),
+)
+# kernel route vs plain route through the whole bf16 model, relative L2
+# error. Both routes are bf16 approximations: the plain route rounds the
+# scores to bf16 before its fp32 softmax (as the JAX dot-product path does),
+# and with random weights the scores reach tens, where bf16's spacing is
+# 0.125. So each route is also held against an fp32 copy of the model, and
+# the kernel route must be no less accurate than the plain one (within
+# ROUTE_MARGIN), besides the direct comparison below.
+ROUTE_FWD_RTOL = 5e-2
+ROUTE_GRAD_RTOL = 1e-1
+ROUTE_MARGIN = 1.25
+KERNEL_SOURCE = "perceptor_tpu_torch/csrc/flash_attention.cu"
+REPLACES = {
+    "flash_fwd": "perceptor_tpu/ops/flash_attention_kernel.py:45",
+    "flash_dq": "perceptor_tpu/ops/flash_attention_kernel.py:126",
+    "flash_dkv": "perceptor_tpu/ops/flash_attention_kernel.py:159",
+}
+FLOPS_PER_S2D = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def card_peaks(name: str):
+    """(dense bf16 FLOP/s, memory bytes/s) from NVIDIA's data sheets."""
+    upper = name.upper()
+    if "H100" in upper and "PCIE" in upper:
+        return 756e12, 2.0e12
+    if "H100" in upper and "NVL" in upper:
+        return 835e12, 3.9e12
+    if "H200" in upper:
+        return 989e12, 4.8e12
+    return 989e12, 3.35e12  # H100 SXM
+
+
+def site_work(kernel: str, b: int, h: int, s: int, d: int):
+    """(FLOPs, bytes) the kernel must do and move at one site: each input
+    read once, each output written once."""
+    flops = FLOPS_PER_S2D[kernel] * b * h * s * s * d
+    tensor = b * h * s * d * 2
+    rows = b * h * s * 4
+    if kernel == "flash_fwd":
+        nbytes = 4 * tensor + rows  # q, k, v -> o, lse
+    elif kernel == "flash_dq":
+        nbytes = 5 * tensor + 2 * rows  # q, k, v, do, lse, delta -> dq
+    else:
+        nbytes = 6 * tensor + 2 * rows  # q, k, v, do, lse, delta -> dk, dv
+    return flops, nbytes
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def site_inputs(b, h, s, d, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [
+        torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        for _ in range(4)
+    ]
+
+
+def phase_kernels(fa) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
+    import torch
+
+    errors = {name: 0.0 for name in REPLACES}
+    sites = []
+    for i, (site, b, h, s, d, _) in enumerate(SITES):
+        q, k, v, do = site_inputs(b, h, s, d, seed=i)
+        scale = 1.0 / math.sqrt(d)
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        o_ref, lse_ref = fa.flash_forward_plain(qf, kf, vf, scale)
+        o, lse = fa.flash_forward(q, k, v, scale)
+        # both backward versions take the same residuals: the plain forward's
+        o_in = o_ref.to(torch.bfloat16)
+        delta = (o_in.float() * dof).sum(-1)
+        dq_ref = fa.flash_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale)
+        dk_ref, dv_ref = fa.flash_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale)
+        dq = fa.flash_dq(q, k, v, do, lse_ref, delta, scale)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)
+        torch.cuda.synchronize()
+        checks = {
+            "o": ("flash_fwd", o, o_ref), "dq": ("flash_dq", dq, dq_ref),
+            "dk": ("flash_dkv", dk, dk_ref), "dv": ("flash_dkv", dv, dv_ref),
+        }
+        record = {"site": site, "shape": [b, h, s, d]}
+        for out_name, (kernel, got, ref) in checks.items():
+            err = float((got.float() - ref).abs().max())
+            tol = KERNEL_RTOL * float(ref.abs().max())
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {out_name} at {site}: max |err| {err} > {tol}")
+            errors[kernel] = max(errors[kernel], err)
+            record[out_name] = {"max_abs_err": err, "tol": tol}
+        lse_err = float((lse - lse_ref).abs().max())
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {LSE_ATOL}")
+        record["lse"] = {"max_abs_err": lse_err, "tol": LSE_ATOL}
+        sites.append(record)
+    extra = []
+    for i, (dtype, b, h, s, d) in enumerate(EXTRA_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(50 + i)
+        # (B, S, H * D) projections viewed as (B, H, S, D): strided inputs
+        q, k, v, do = (
+            torch.randn((b, s, h * d), generator=gen, device="cuda")
+            .to(getattr(torch, dtype)).view(b, s, h, d).transpose(1, 2)
+            for _ in range(4)
+        )
+        scale = 1.0 / math.sqrt(d)
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        o_ref, lse_ref = fa.flash_forward_plain(qf, kf, vf, scale)
+        delta = (o_ref.to(q.dtype).float() * dof).sum(-1)
+        refs = [o_ref, fa.flash_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale),
+                *fa.flash_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale)]
+        outs = [fa.flash_forward(q, k, v, scale)[0], fa.flash_dq(q, k, v, do, lse_ref, delta, scale),
+                *fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)]
+        torch.cuda.synchronize()
+        rtol = FP32_RTOL if dtype == "float32" else KERNEL_RTOL
+        for out_name, got, ref in zip(("o", "dq", "dk", "dv"), outs, refs):
+            err, tol = float((got.float() - ref).abs().max()), rtol * float(ref.abs().max())
+            case = [dtype, b, h, s, d]
+            if not err <= tol:
+                raise AssertionError(f"{out_name} at {case}: max |err| {err} > {tol}")
+            extra.append({"case": case, "out": out_name, "max_abs_err": err, "tol": tol})
+    emit({"phase": "kernels", "ok": True, "sites": sites, "off_path": extra})
+    return errors
+
+
+def phase_guided_step(fa, step) -> dict:
+    """Five full-width guided steps through the kernels."""
+    import torch
+
+    latents, context = step.initial_inputs()
+    step.guided_denoise_step(latents, context)  # warm-up: cuDNN/cuBLAS set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(STEPS + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    losses = []
+    for i in range(STEPS):
+        latents, loss = step.guided_denoise_step(latents, context)
+        events[i + 1].record()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    expected = {name: 11 * STEPS for name in REPLACES}
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, want {expected}")
+    if not (torch.isfinite(latents).all() and all(torch.isfinite(x) for x in losses)):
+        raise AssertionError("non-finite latents or loss")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(STEPS)]
+    emit({
+        "phase": "guided_step", "ok": True, "config": "sd-v1-512", "steps": STEPS,
+        "latents_shape": list(latents.shape), "losses": [float(x) for x in losses],
+        "step_ms": step_ms, "steady_ms_per_step": sorted(step_ms)[STEPS // 2],
+        "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+    })
+    return launches
+
+
+def _set_route(module, use_flash) -> None:
+    for m in module.modules():
+        if hasattr(m, "use_flash"):
+            m.use_flash = use_flash
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_route_parity(step) -> None:
+    """Kernel route vs plain route at full width, same weights and inputs,
+    both also against an fp32 copy of each model."""
+    import copy
+
+    import torch
+
+    latents, context = step.initial_inputs()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    probe = torch.randn(latents.shape, generator=gen, device="cuda")
+
+    def unet_out_grad(unet, use_flash):
+        _set_route(unet, use_flash)
+        x = latents.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = unet(x, step.from_idx.float(), context)
+            (grad,) = torch.autograd.grad((out * probe).sum(), x)
+        return out.detach(), grad
+
+    def vae_decode(vae, use_flash):
+        _set_route(vae, use_flash)
+        with torch.no_grad():
+            return vae.decode(latents)
+
+    results = {}
+    for name, bf16_model, run in (
+        ("unet", step.unet, unet_out_grad), ("vae_decode", step.vae, vae_decode),
+    ):
+        kernel, plain = run(bf16_model, None), run(bf16_model, False)
+        reference = run(copy.deepcopy(bf16_model).float(), False)
+        _set_route(bf16_model, None)
+        outputs = ("out", "latent_grad") if name == "unet" else ("images",)
+        if name == "vae_decode":
+            kernel, plain, reference = (kernel,), (plain,), (reference,)
+        for i, out_name in enumerate(outputs):
+            tol = ROUTE_GRAD_RTOL if out_name == "latent_grad" else ROUTE_FWD_RTOL
+            rec = {
+                "kernel_vs_plain": _rel_l2(kernel[i], plain[i]), "tol": tol,
+                "kernel_vs_fp32": _rel_l2(kernel[i], reference[i]),
+                "plain_vs_fp32": _rel_l2(plain[i], reference[i]),
+            }
+            key = f"{name}_{out_name}"
+            if not rec["kernel_vs_plain"] <= tol:
+                raise AssertionError(f"route parity {key}: {rec}")
+            if not rec["kernel_vs_fp32"] <= ROUTE_MARGIN * rec["plain_vs_fp32"] + 1e-3:
+                raise AssertionError(f"kernel route less accurate than the plain one, {key}: {rec}")
+            results[key] = rec
+        del reference
+        torch.cuda.empty_cache()
+    emit({"phase": "route_parity", "ok": True, "metric": "relative L2 error", **results})
+
+
+def phase_profile(step) -> dict:
+    """One guided step under torch.profiler: device time by kernel, and the
+    step's device busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    latents, context = step.initial_inputs()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.guided_denoise_step(latents, context)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [
+        e for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    flash_us = sum(e.self_device_time_total for e in kernels if "flash_" in e.key)
+    record = {
+        "phase": "profile", "ok": True, "step_wall_ms": wall_ms,
+        "device_ms": total_us / 1e3, "device_busy_share": total_us / 1e3 / wall_ms,
+        "flash_kernels_ms": flash_us / 1e3, "kernel_launches": sum(e.count for e in kernels),
+        "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
+                for e in top],
+    }
+    emit(record)
+    return record
+
+
+def phase_timings(fa, peak_flops, peak_bw) -> list:
+    """Kernel, plain version and SDPA per site, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for i, (site, b, h, s, d, count) in enumerate(SITES):
+        q, k, v, do = site_inputs(b, h, s, d, seed=100 + i)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_forward(q, k, v, scale)
+        delta = (o.float() * do.float()).sum(-1)
+        kernels = {
+            "flash_fwd": (lambda: fa.flash_forward(q, k, v, scale),
+                          lambda: fa.flash_forward_plain(q, k, v, scale)),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, scale),
+                         lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, scale)),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, scale),
+                          lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)),
+        }
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qg, kg, vg, scale=scale).backward(do)
+
+        with torch.no_grad():
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd)
+        for name, (kernel_fn, plain_fn) in kernels.items():
+            flops, nbytes = site_work(name, b, h, s, d)
+            t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+            rows.append({
+                "kernel": name, "site": site, "shape": [b, h, s, d], "per_step": count,
+                "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, reps=5),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "flops": flops, "bytes": nbytes,
+                "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+            })
+    emit({"phase": "timings", "ok": True, "rows": rows})
+    return rows
+
+
+def kernel_table(rows, launches, errors) -> list:
+    """Per kernel, the work of one guided step: site times weighted by
+    their launches per step."""
+    table = []
+    for name in REPLACES:
+        mine = [r for r in rows if r["kernel"] == name]
+
+        def per_step(key):
+            return sum(r[key] * r["per_step"] for r in mine)
+
+        t_ops = sum(r["flops"] * r["per_step"] for r in mine)
+        t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
+        table.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errors[name], "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+            "bound_ms": per_step("bound_ms"),
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in mine) else "bytes",
+            # one PyTorch call computes the forward alone (SDPA); none computes
+            # dq or dk/dv alone (SDPA's backward returns all three)
+            "library_ms": per_step("sdpa_fwd_ms") if name == "flash_fwd" else None,
+            "flops_per_step": t_ops, "bytes_per_step": t_bytes,
+        })
+    return table
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from perceptor_tpu_torch import guided_step
+    from perceptor_tpu_torch.ops import flash_attention_kernel as fa
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    peak_flops, peak_bw = card_peaks(name)
+    emit({
+        "phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+        "device": name, "nvidia_smi": smi, "peak_bf16_flops": peak_flops,
+        "peak_bytes_per_s": peak_bw,
+    })
+
+    t0 = time.perf_counter()
+    library = fa.build_library()
+    emit({"phase": "build", "ok": True, "library": library.name,
+          "seconds": time.perf_counter() - t0})
+
+    errors = phase_kernels(fa)
+    t0 = time.perf_counter()
+    step = guided_step.build("sd-v1-512", device="cuda", seed=0)
+    emit({"phase": "model_build", "ok": True, "seconds": time.perf_counter() - t0})
+    launches = phase_guided_step(fa, step)
+    phase_profile(step)
+    phase_route_parity(step)
+    del step
+    torch.cuda.empty_cache()
+    rows = phase_timings(fa, peak_flops, peak_bw)
+
+    print(json.dumps({"kernels": kernel_table(rows, launches, errors)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,207 @@
+"""JAX (flax) parameter trees -> the port's state_dicts.
+
+Each function takes the JAX package's flax param tree as numpy arrays and
+returns a state_dict for the port's module, inverting the rules of the JAX
+converters (perceptor_tpu/models/stable_diffusion/convert.py,
+perceptor_tpu/models/clip/convert.py):
+
+    conv   (kh, kw, I, O) -> (O, I, kh, kw)
+    dense  (I, O)         -> (O, I)
+    norm   scale          -> weight
+
+The port's keys are diffusers' (UNet, VAE) and open_clip's (CLIP visual), so
+the JAX package's own `unet_from_diffusers`, `vae_from_diffusers` and
+`from_openclip` map these state_dicts back to the same trees.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from perceptor_tpu_torch.models.clip.configs import CLIPConfig
+from perceptor_tpu_torch.models.stable_diffusion.config import UNetConfig, VAEConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(array) -> torch.Tensor:
+    return torch.tensor(np.asarray(array, dtype=np.float32))
+
+
+def _conv(p: Mapping, prefix: str, sd: StateDict) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _linear(p: Mapping, prefix: str, sd: StateDict) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _norm(p: Mapping, prefix: str, sd: StateDict) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _resnet(p: Mapping, prefix: str, sd: StateDict) -> None:
+    _norm(p["norm1"], f"{prefix}.norm1", sd)
+    _conv(p["conv1"], f"{prefix}.conv1", sd)
+    _norm(p["norm2"], f"{prefix}.norm2", sd)
+    _conv(p["conv2"], f"{prefix}.conv2", sd)
+    if "time_emb_proj" in p:
+        _linear(p["time_emb_proj"], f"{prefix}.time_emb_proj", sd)
+    if "conv_shortcut" in p:
+        _conv(p["conv_shortcut"], f"{prefix}.conv_shortcut", sd)
+
+
+def _cross_attention(p: Mapping, prefix: str, sd: StateDict) -> None:
+    for name in ("to_q", "to_k", "to_v"):
+        _linear(p[name], f"{prefix}.{name}", sd)
+    _linear(p["to_out_0"], f"{prefix}.to_out.0", sd)
+
+
+def _spatial_transformer(p: Mapping, prefix: str, depth: int, sd: StateDict) -> None:
+    _norm(p["norm"], f"{prefix}.norm", sd)
+    _conv(p["proj_in"], f"{prefix}.proj_in", sd)
+    _conv(p["proj_out"], f"{prefix}.proj_out", sd)
+    for k in range(depth):
+        block, bp = f"{prefix}.transformer_blocks.{k}", p[f"transformer_blocks_{k}"]
+        for norm in ("norm1", "norm2", "norm3"):
+            _norm(bp[norm], f"{block}.{norm}", sd)
+        _cross_attention(bp["attn1"], f"{block}.attn1", sd)
+        _cross_attention(bp["attn2"], f"{block}.attn2", sd)
+        _linear(bp["ff"]["net_0_proj"], f"{block}.ff.net.0.proj", sd)
+        _linear(bp["ff"]["net_2"], f"{block}.ff.net.2", sd)
+
+
+def unet_state_dict_from_jax(params: Mapping, cfg: UNetConfig) -> StateDict:
+    """Flax `UNet` params -> state_dict of the port's (diffusers-named) UNet."""
+    sd: StateDict = {}
+    _conv(params["conv_in"], "conv_in", sd)
+    _linear(params["time_embedding"]["linear_1"], "time_embedding.linear_1", sd)
+    _linear(params["time_embedding"]["linear_2"], "time_embedding.linear_2", sd)
+    _norm(params["conv_norm_out"], "conv_norm_out", sd)
+    _conv(params["conv_out"], "conv_out", sd)
+    _resnet(params["mid_block_resnets_0"], "mid_block.resnets.0", sd)
+    _resnet(params["mid_block_resnets_1"], "mid_block.resnets.1", sd)
+    _spatial_transformer(
+        params["mid_block_attentions_0"], "mid_block.attentions.0", cfg.transformer_depth, sd
+    )
+    n_levels = len(cfg.channel_mults)
+    for i in range(n_levels):
+        for j in range(cfg.n_res_blocks):
+            _resnet(params[f"down_blocks_{i}_resnets_{j}"], f"down_blocks.{i}.resnets.{j}", sd)
+            if cfg.cross_attention[i]:
+                _spatial_transformer(
+                    params[f"down_blocks_{i}_attentions_{j}"],
+                    f"down_blocks.{i}.attentions.{j}", cfg.transformer_depth, sd,
+                )
+        if i < n_levels - 1:
+            _conv(
+                params[f"down_blocks_{i}_downsamplers_0"]["conv"],
+                f"down_blocks.{i}.downsamplers.0.conv", sd,
+            )
+    for i in range(n_levels):
+        level = n_levels - 1 - i
+        for j in range(cfg.n_res_blocks + 1):
+            _resnet(params[f"up_blocks_{i}_resnets_{j}"], f"up_blocks.{i}.resnets.{j}", sd)
+            if cfg.cross_attention[level]:
+                _spatial_transformer(
+                    params[f"up_blocks_{i}_attentions_{j}"],
+                    f"up_blocks.{i}.attentions.{j}", cfg.transformer_depth, sd,
+                )
+        if level > 0:
+            _conv(
+                params[f"up_blocks_{i}_upsamplers_0"]["conv"],
+                f"up_blocks.{i}.upsamplers.0.conv", sd,
+            )
+    return sd
+
+
+def _vae_attention(p: Mapping, prefix: str, sd: StateDict) -> None:
+    _norm(p["group_norm"], f"{prefix}.group_norm", sd)
+    _cross_attention(p, prefix, sd)
+
+
+def _vae_mid(p: Mapping, prefix: str, sd: StateDict) -> None:
+    _resnet(p["resnets_0"], f"{prefix}.resnets.0", sd)
+    _resnet(p["resnets_1"], f"{prefix}.resnets.1", sd)
+    if "attentions_0" in p:
+        _vae_attention(p["attentions_0"], f"{prefix}.attentions.0", sd)
+
+
+def vae_state_dict_from_jax(params: Mapping, cfg: VAEConfig) -> StateDict:
+    """Flax `AutoencoderKL` params -> state_dict of the port's (diffusers-named) VAE."""
+    sd: StateDict = {}
+    n_levels = len(cfg.channel_mults)
+    enc, dec = params["encoder"], params["decoder"]
+    _conv(enc["conv_in"], "encoder.conv_in", sd)
+    _vae_mid(enc["mid_block"], "encoder.mid_block", sd)
+    _norm(enc["conv_norm_out"], "encoder.conv_norm_out", sd)
+    _conv(enc["conv_out"], "encoder.conv_out", sd)
+    for i in range(n_levels):
+        for j in range(cfg.n_res_blocks):
+            _resnet(enc[f"down_blocks_{i}_resnets_{j}"], f"encoder.down_blocks.{i}.resnets.{j}", sd)
+            if i in cfg.encoder_attn_levels:
+                _vae_attention(
+                    enc[f"down_blocks_{i}_attentions_{j}"],
+                    f"encoder.down_blocks.{i}.attentions.{j}", sd,
+                )
+        if i < n_levels - 1:
+            _conv(
+                enc[f"down_blocks_{i}_downsamplers_0_conv"],
+                f"encoder.down_blocks.{i}.downsamplers.0.conv", sd,
+            )
+    _conv(dec["conv_in"], "decoder.conv_in", sd)
+    _vae_mid(dec["mid_block"], "decoder.mid_block", sd)
+    _norm(dec["conv_norm_out"], "decoder.conv_norm_out", sd)
+    _conv(dec["conv_out"], "decoder.conv_out", sd)
+    for i in range(n_levels):
+        for j in range(cfg.n_res_blocks + 1):
+            _resnet(dec[f"up_blocks_{i}_resnets_{j}"], f"decoder.up_blocks.{i}.resnets.{j}", sd)
+            if i in cfg.decoder_attn_levels:
+                _vae_attention(
+                    dec[f"up_blocks_{i}_attentions_{j}"],
+                    f"decoder.up_blocks.{i}.attentions.{j}", sd,
+                )
+        if i < n_levels - 1:
+            _conv(
+                dec[f"up_blocks_{i}_upsamplers_0_conv"],
+                f"decoder.up_blocks.{i}.upsamplers.0.conv", sd,
+            )
+    _conv(params["quant_conv"], "quant_conv", sd)
+    _conv(params["post_quant_conv"], "post_quant_conv", sd)
+    return sd
+
+
+def clip_visual_state_dict_from_jax(visual: Mapping, cfg: CLIPConfig) -> StateDict:
+    """Flax `VisionTransformer` params (`params["visual"]`) -> the port's
+    open_clip-named `visual.*` state_dict; q/k/v projections are packed into
+    `attn.in_proj_weight`/`in_proj_bias` as open_clip stores them."""
+    sd: StateDict = {}
+    sd["visual.conv1.weight"] = _t(np.asarray(visual["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+    sd["visual.class_embedding"] = _t(visual["class_embedding"])
+    sd["visual.positional_embedding"] = _t(visual["positional_embedding"])
+    sd["visual.proj"] = _t(visual["proj"])
+    _norm(visual["ln_pre"], "visual.ln_pre", sd)
+    _norm(visual["ln_post"], "visual.ln_post", sd)
+    for i in range(cfg.vision_layers):
+        bp, prefix = visual["transformer"][f"resblocks_{i}"], f"visual.transformer.resblocks.{i}"
+        _norm(bp["ln_1"], f"{prefix}.ln_1", sd)
+        _norm(bp["ln_2"], f"{prefix}.ln_2", sd)
+        attn = bp["attn"]
+        sd[f"{prefix}.attn.in_proj_weight"] = _t(
+            np.concatenate([np.asarray(attn[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")])
+        )
+        sd[f"{prefix}.attn.in_proj_bias"] = _t(
+            np.concatenate([np.asarray(attn[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")])
+        )
+        _linear(attn["out_proj"], f"{prefix}.attn.out_proj", sd)
+        _linear(bp["mlp"]["fc1"], f"{prefix}.mlp.c_fc", sd)
+        _linear(bp["mlp"]["fc2"], f"{prefix}.mlp.c_proj", sd)
+    return sd

@@ -1,0 +1,41 @@
+"""Mixed-precision policy (counterpart of perceptor_tpu/core/dtypes.py).
+
+Matmul and convolution weights (ndim >= 2) are stored in bf16; norm scales,
+biases and scalars stay fp32. Every matmul/conv layer of the port computes
+in its weight's dtype (`ops/layers.py`), so bf16 weight storage IS the bf16
+compute policy: activations enter each layer cast to bf16, accumulate in
+fp32 inside cuBLAS/cuDNN, and norms, softmax and schedule math run in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+from torch import nn
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def _is_matmul_weight(t: torch.Tensor) -> bool:
+    return t.ndim >= 2 and t.is_floating_point()
+
+
+def cast_matmul_params_bf16(
+    obj: Union[nn.Module, Dict[str, torch.Tensor]],
+) -> Union[nn.Module, Dict[str, torch.Tensor]]:
+    """bf16 storage for matmul/conv/embedding weights (ndim >= 2).
+
+    A module is cast in place and returned; a state_dict is returned as a
+    new dict. 1-D norm scales/biases and scalars stay fp32.
+    """
+    if isinstance(obj, nn.Module):
+        with torch.no_grad():
+            for param in obj.parameters():
+                if _is_matmul_weight(param):
+                    param.data = param.data.to(torch.bfloat16)
+        return obj
+    return {
+        k: v.to(torch.bfloat16) if _is_matmul_weight(v) else v
+        for k, v in obj.items()
+    }

@@ -1,0 +1,215 @@
+"""The CLIP-guided Stable Diffusion denoise step (counterpart of
+bench.py:48-154), the port's main path.
+
+One step: UNet forward on the latents -> denoised latents -> VAE decode ->
+antialiased resize to the CLIP input size and CLIP normalization -> CLIP
+ViT image tower -> L2-normalize -> spherical distance to a fixed unit
+target embedding; the gradient of that loss with respect to the latents
+(back through CLIP, the VAE and the UNet, so through the flash forward and
+both backward kernels) then drives `guided(grad, 0.5).step(to_idx)`.
+
+Weights are random, drawn from a seeded `torch.Generator` in the JAX
+bench's fill (`perceptor_tpu/core/init.init_by_shape`: normal with std
+1/sqrt(fan_in) for weights, zero biases, unit norm scales), so FLOPs and
+memory equal those of pretrained weights. Matmul/conv weights are stored in
+bf16 and norms in fp32.
+
+Usage::
+
+    step = build("sd-v1-512", device="cuda", seed=0)
+    latents, context = step.initial_inputs()
+    for _ in range(n):
+        latents, loss = step.guided_denoise_step(latents, context)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE, cast_matmul_params_bf16
+from perceptor_tpu_torch.losses.prompt_bank import _l2_normalize, spherical_distance_squared
+from perceptor_tpu_torch.models.clip.configs import CLIPConfig, get_config
+from perceptor_tpu_torch.models.clip.model import CLIP
+from perceptor_tpu_torch.models.open_clip import CLIP_MEAN, CLIP_STD
+from perceptor_tpu_torch.models.stable_diffusion import config as sd_config
+from perceptor_tpu_torch.models.stable_diffusion.unet import UNet
+from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
+from perceptor_tpu_torch.ops.resize import resize
+from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions
+from perceptor_tpu_torch.schedules import scaled_linear_alphas_sigmas
+
+FROM_INDEX = 800
+TO_INDEX = 780
+GUIDANCE_SCALE = 0.5
+
+# the tiny CLIP of __graft_entry__.py's multi-chip dry run
+TINY_CLIP = CLIPConfig(
+    embed_dim=32,
+    image_size=(32, 32),
+    patch_size=8,
+    vision_width=32,
+    vision_layers=2,
+    vision_heads=2,
+    context_length=16,
+    vocab_size=64,
+    text_width=32,
+    text_layers=2,
+    text_heads=2,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    unet: sd_config.UNetConfig
+    vae: sd_config.VAEConfig
+    clip: CLIPConfig
+    image_size: int
+    dtype: torch.dtype
+
+
+CONFIGS = {
+    "sd-v1-512": StepConfig(
+        sd_config.SD_V1_UNET, sd_config.SD_V1_VAE, get_config("ViT-B-32", "openai"),
+        512, COMPUTE_DTYPE,
+    ),
+    "tiny": StepConfig(sd_config.TINY_UNET, sd_config.TINY_VAE, TINY_CLIP, 16, torch.float32),
+}
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device: CUDA unless the caller asks for the CPU. A
+    CUDA device on a machine without one raises; nothing falls back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain PyTorch path"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill parameters like `init_by_shape`: weights ~ N(0, 1/fan_in), biases
+    zero, 1-D norm weights one. fan_in is the input size of a conv/linear
+    weight (torch layout), else the product of all but the last dim (the
+    flax layout of `proj` and `positional_embedding`)."""
+    for name, param in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if "bias" in leaf:
+            param.zero_()
+        elif param.ndim == 1 and leaf == "weight":
+            param.fill_(1.0)
+        else:
+            if leaf in ("weight", "in_proj_weight"):
+                fan_in = param[0].numel()
+            else:
+                fan_in = int(np.prod(param.shape[:-1])) if param.ndim > 1 else param.shape[0]
+            noise = torch.randn(
+                param.shape, generator=generator, device=param.device, dtype=torch.float32
+            )
+            param.copy_(noise / float(np.sqrt(max(fan_in, 1))))
+    return module
+
+
+def _make(cls, cfg, device, generator, dtype) -> nn.Module:
+    with torch.device("meta"):
+        module = cls(cfg)
+    module = module.to_empty(device=device)
+    init_random_(module, generator)
+    if dtype == COMPUTE_DTYPE:
+        cast_matmul_params_bf16(module)
+    return module.requires_grad_(False).eval()
+
+
+class GuidedStep:
+    """The three frozen models and the constants of the guided step."""
+
+    def __init__(self, cfg: StepConfig, unet: UNet, vae: AutoencoderKL, clip: CLIP,
+                 device: torch.device, seed: int):
+        self.config = cfg
+        self.unet, self.vae, self.clip = unet, vae, clip
+        self.device = device
+        self.seed = seed
+        alphas, sigmas = scaled_linear_alphas_sigmas()
+        self.alphas = torch.as_tensor(alphas, device=device)
+        self.sigmas = torch.as_tensor(sigmas, device=device)
+        # the JAX bench's target: a fixed unit embedding from numpy's rng(2)
+        target = np.random.default_rng(2).normal(size=(1, cfg.clip.embed_dim))
+        target = (target / np.linalg.norm(target, axis=-1, keepdims=True)).astype(np.float32)
+        self.target = torch.as_tensor(target, device=device)
+        self.mean = torch.as_tensor(CLIP_MEAN, device=device).reshape(1, 3, 1, 1)
+        self.std = torch.as_tensor(CLIP_STD, device=device).reshape(1, 3, 1, 1)
+        self.from_idx = torch.tensor([FROM_INDEX], device=device)
+        self.to_idx = torch.tensor([TO_INDEX], device=device)
+
+    def initial_inputs(self, batch: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Seeded (latents, context): latents (N, 4, S/8, S/8) and a random
+        text context (N, 77, context_dim)."""
+        cfg = self.config
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        size = cfg.image_size // cfg.vae.downscale
+        latents = torch.randn(
+            (batch, cfg.unet.in_channels, size, size), generator=gen, device=self.device
+        )
+        context = torch.randn(
+            (batch, 77, cfg.unet.context_dim), generator=gen, device=self.device
+        )
+        return latents, context
+
+    def predictions(self, latents, noise) -> LatentIndexedEpsPredictions:
+        return LatentIndexedEpsPredictions(
+            from_diffused_latents=latents,
+            from_indices=self.from_idx,
+            predicted_noise=noise,
+            schedule_alphas=self.alphas,
+            schedule_sigmas=self.sigmas,
+        )
+
+    def clip_loss(self, images: torch.Tensor) -> torch.Tensor:
+        images = resize(images, out_shape=self.config.clip.image_size)
+        images = (images - self.mean) / self.std
+        encodings = _l2_normalize(self.clip.encode_image(images))
+        return spherical_distance_squared(encodings, self.target).mean()
+
+    def loss_and_noise(self, latents: torch.Tensor, context: torch.Tensor):
+        noise = self.unet(latents, self.from_idx.float(), context)
+        images = self.vae.decode(self.predictions(latents, noise).denoised_xs)
+        return self.clip_loss(images), noise
+
+    def guided_denoise_step(self, latents: torch.Tensor, context: torch.Tensor):
+        """(stepped latents, loss) of one guided DDIM step 800 -> 780."""
+        latents = latents.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss, noise = self.loss_and_noise(latents, context)
+            (grad,) = torch.autograd.grad(loss, latents)
+        return self.step_with_gradient(latents.detach(), noise.detach(), grad), loss.detach()
+
+    def step_with_gradient(self, latents, noise, grad) -> torch.Tensor:
+        predictions = self.predictions(latents, noise)
+        return predictions.guided(grad, guidance_scale=GUIDANCE_SCALE).step(self.to_idx)
+
+
+def build(config: str = "sd-v1-512", device="cuda", seed: int = 0) -> GuidedStep:
+    """The guided step at `config` ("sd-v1-512": SD-1.x UNet + VAE at 512px
+    with CLIP ViT-B/32 in bf16; "tiny": the TINY configs in fp32), with
+    random weights from `seed`, on `device` (CUDA unless the caller passes
+    "cpu")."""
+    if config not in CONFIGS:
+        raise ValueError(f"unknown config {config!r}; known: {sorted(CONFIGS)}")
+    device = resolve_device(device)
+    # fp32 matmuls (the resize) and convolutions run in full fp32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CONFIGS[config]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    unet = _make(UNet, cfg.unet, device, gen, cfg.dtype)
+    vae = _make(AutoencoderKL, cfg.vae, device, gen, cfg.dtype)
+    clip = _make(CLIP, cfg.clip, device, gen, cfg.dtype)
+    return GuidedStep(cfg, unet, vae, clip, device, seed)

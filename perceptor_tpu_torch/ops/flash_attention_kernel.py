@@ -1,0 +1,318 @@
+"""Flash attention: three hand-written CUDA kernels for Hopper, their plain
+PyTorch versions, and the autograd.Function that joins them.
+
+Counterpart of perceptor_tpu/ops/flash_attention_kernel.py (Pallas TPU):
+
+    flash_forward  <- _forward / _fwd_kernel   (O and the row logsumexp)
+    flash_dq       <- _backward / _bwd_dq_kernel
+    flash_dkv      <- _backward / _bwd_dkv_kernel
+
+Layout (batch, heads, seq, head_dim). The kernels live in
+`csrc/flash_attention.cu`, are compiled by nvcc for sm_90a into `build/`
+at first use and loaded with ctypes. On a CPU tensor each wrapper runs its
+plain version; on a CUDA tensor it launches its kernel or raises. Each
+wrapper counts its kernel launches in `LAUNCHES`.
+
+Backward: the two-kernel scheme of the JAX package. The residuals
+(q, k, v, o, lse) let each kernel recompute p = exp(scale * q k^T - lse)
+tile by tile; dq accumulates over K/V tiles, dk/dv over Q tiles, so no
+atomics are needed and results are deterministic. delta = rowsum(o * do)
+is computed in fp32 before the launches, as the JAX code does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+MAX_HEAD_DIM = 512
+
+# kernel launches per wrapper, reset by callers that need to prove a path
+# went through the kernels
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def flash_forward_plain(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): o = softmax(scale q k^T) v in q's dtype, lse (B, H, Sq) fp32.
+    All arithmetic in fp32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.matmul(p, v.float()).to(q.dtype), lse
+
+
+def _recompute_p_ds(q, k, v, do, lse, delta, scale):
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds
+
+
+def flash_dq_plain(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """dq = sum_kv ds k with ds = p * (do v^T - delta) * scale, in fp32."""
+    _, ds = _recompute_p_ds(q, k, v, do, lse, delta, scale)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, scale: float):
+    """(dk, dv): dv = p^T do, dk = ds^T q, in fp32."""
+    p, ds = _recompute_p_ds(q, k, v, do, lse, delta, scale)
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- the CUDA library ----------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    # q, k, v, o, lse | B, H, Sq, Sk, D | strides | scale, is_f32, stream
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, do, lse, delta, dq | ... same
+    "flash_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, do, lse, delta, dk, dv | ... same
+    "flash_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
+}
+DTYPES = (torch.bfloat16, torch.float32)
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the flash-attention kernels cannot be built")
+    return found
+
+
+def build_library() -> Path:
+    """Compile csrc/flash_attention.cu for sm_90a into build/ (once per
+    source version) and return the shared library's path."""
+    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = _BUILD_DIR / f"libflash_attention_{digest.hexdigest()[:12]}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _check_cuda_inputs(named, seq_dims):
+    """Device, dtype, shape and stride checks shared by the three kernels."""
+    q = named[0][1]
+    b, h, _, d = q.shape
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 8 and <= {MAX_HEAD_DIM}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the CUDA kernels take bfloat16 or float32, got {q.dtype}")
+    for (name, t), seq in zip(named, seq_dims):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.shape != (b, h, seq, d):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {(b, h, seq, d)}")
+        # 16-byte vector loads: unit stride over head_dim, other strides and
+        # the base address 16-byte aligned
+        if (
+            t.stride(3) != 1
+            or any(s * t.element_size() % 16 for s in t.stride()[:3])
+            or t.data_ptr() % 16
+        ):
+            raise ValueError(f"{name}: unsupported strides {t.stride()} or alignment")
+
+
+def _check_lse(name, t, shape, device):
+    if t.device != device or t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {device}")
+
+
+def _strides(*tensors):
+    """(batch, head, seq) element strides of up to four tensors, as the C
+    array the kernels read (12 values, zero-filled)."""
+    values = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * 12)(*values, *([0] * (12 - len(values))))
+
+
+def _raise_on_error(name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _kernel_blocks(d: int, kernel: str, dtype: torch.dtype):
+    """(block_q, block_k) the CUDA kernel uses for this head_dim and dtype
+    (kept in step with the dispatch in csrc/flash_attention.cu)."""
+    if dtype == torch.bfloat16:
+        if d > 128:
+            return {"fwd": (16, 32), "dq": (16, 32), "dkv": (16, 16)}[kernel]
+        return 64, 64
+    if d > 128:
+        return {"fwd": (16, 32), "dq": (16, 16), "dkv": (16, 16)}[kernel]
+    return 32, 32
+
+
+def _check_blocks(sq: int, sk: int, d: int, kernel: str, dtype: torch.dtype):
+    bq, bk = _kernel_blocks(d, kernel, dtype)
+    if sq % bq or sk % bk:
+        raise ValueError(
+            f"sequence lengths ({sq}, {sk}) must be multiples of the {kernel} "
+            f"kernel's blocks ({bq}, {bk})"
+        )
+
+
+# -- wrappers --------------------------------------------------------------
+
+
+def _device_check(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return q.device.type == "cuda"
+
+
+def flash_forward(q, k, v, scale: float):
+    """(o, lse) for (B, H, S, D) inputs; lse is (B, H, Sq) fp32."""
+    if not _device_check(q):
+        return flash_forward_plain(q, k, v, scale)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _check_cuda_inputs([("q", q), ("k", k), ("v", v)], [sq, sk, sk])
+    _check_blocks(sq, sk, d, "fwd", q.dtype)
+    o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _library().flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, h, sq, sk, d, _strides(q, k, v), float(scale), q.dtype == torch.float32,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on_error("flash_fwd", err)
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def _bwd_checks(q, k, v, do, lse, delta, kernel):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _check_cuda_inputs([("q", q), ("k", k), ("v", v), ("do", do)], [sq, sk, sk, sq])
+    _check_lse("lse", lse, (b, h, sq), q.device)
+    _check_lse("delta", delta, (b, h, sq), q.device)
+    _check_blocks(sq, sk, d, kernel, q.dtype)
+    return b, h, sq, sk, d
+
+
+def flash_dq(q, k, v, do, lse, delta, scale: float):
+    """dq of softmax(scale q k^T) v given the forward's lse and
+    delta = rowsum(o * do) in fp32."""
+    if not _device_check(q):
+        return flash_dq_plain(q, k, v, do, lse, delta, scale)
+    b, h, sq, sk, d = _bwd_checks(q, k, v, do, lse, delta, "dq")
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _library().flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d, _strides(q, k, v, do),
+            float(scale), q.dtype == torch.float32,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on_error("flash_dq", err)
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, scale: float):
+    """(dk, dv) of softmax(scale q k^T) v, same inputs as `flash_dq`."""
+    if not _device_check(q):
+        return flash_dkv_plain(q, k, v, do, lse, delta, scale)
+    b, h, sq, sk, d = _bwd_checks(q, k, v, do, lse, delta, "dkv")
+    dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        err = _library().flash_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
+            _strides(q, k, v, do), float(scale), q.dtype == torch.float32,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on_error("flash_dkv", err)
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX `_flash` custom VJP: saves (q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.is_cuda and (
+            do.stride(3) != 1 or any(s * do.element_size() % 16 for s in do.stride()[:3])
+        ):
+            do = do.contiguous()
+        delta = (o.float() * do.float()).sum(dim=-1)
+        dq = flash_dq(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (B, H, S, D), differentiable; the flash
+    kernels on CUDA tensors, their plain versions on CPU tensors."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention takes (batch, heads, seq, head_dim) tensors")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, float(scale))
