@@ -9,8 +9,12 @@ exits non-zero without a result line:
 
 1. kernels      each CUDA kernel against its plain PyTorch version (fp32
                 arithmetic on the same bf16 inputs) at the three attention
-                shapes of the 512px guided step, and off the main path at
-                small shapes (fp32 inputs; strided batch-2 bf16 inputs);
+                shapes of the 512px guided step, two dk/dv launches held
+                bitwise equal there, and off the main path: fp32 inputs,
+                strided batch-2 bf16 inputs (S = 1024 and 768px's 2304),
+                d = 512 at S = 1024, and K/V of a single tile; then each
+                kernel's registers, spills, shared memory and resident
+                blocks per SM;
 2. guided_step  the full-width main path (SD-1.x UNet + VAE at 512px, CLIP
                 ViT-B/32, batch 1, random weights from seed 0) for 5 steps:
                 finite latents and loss, exactly 11 launches of each kernel
@@ -50,14 +54,21 @@ SITES = (
 # leaves a 10x margin while a wrong tile, index or scale errs by O(1) of it.
 KERNEL_RTOL = 2e-2
 LSE_ATOL = 1e-3
-# Off the main path, at small shapes: fp32 inputs (the kernels' scalar
-# path: the plain version's fp32 arithmetic up to summation order, so 1e-4)
-# and bf16 batch-2 inputs viewed from (B, S, H * D) projections, as the
-# UNet passes them (KERNEL_RTOL). (dtype, batch, heads, seq, head_dim)
+# Off the main path: fp32 inputs (the kernels' scalar path: the plain
+# version's fp32 arithmetic up to summation order, so 1e-4) and bf16 inputs
+# (KERNEL_RTOL), all viewed from (B, S, H * D) projections as the UNet
+# passes them: batch 2 at S = 1024 and at 768px's S = 2304, the VAE's
+# d = 512 at S = 1024, and Sk of a single K/V tile of the bf16 forward and
+# dk/dv (64 keys at d = 40, 32 at d = 512).
+# (dtype, batch, heads, seq_q, seq_k, head_dim)
 FP32_RTOL = 1e-4
 EXTRA_CASES = (
-    ("float32", 1, 2, 256, 40), ("float32", 1, 2, 256, 80), ("float32", 1, 1, 256, 512),
-    ("bfloat16", 2, 2, 1024, 40), ("bfloat16", 2, 2, 1024, 80),
+    ("float32", 1, 2, 256, 256, 40), ("float32", 1, 2, 256, 256, 80),
+    ("float32", 1, 1, 256, 256, 512),
+    ("bfloat16", 2, 2, 1024, 1024, 40), ("bfloat16", 2, 2, 1024, 1024, 80),
+    ("bfloat16", 2, 2, 2304, 2304, 40), ("bfloat16", 2, 2, 2304, 2304, 80),
+    ("bfloat16", 1, 1, 1024, 1024, 512),
+    ("bfloat16", 1, 2, 256, 64, 40), ("bfloat16", 1, 1, 128, 32, 512),
 )
 # kernel route vs plain route through the whole bf16 model, relative L2
 # error. Both routes are bf16 approximations: the plain route rounds the
@@ -69,7 +80,11 @@ EXTRA_CASES = (
 ROUTE_FWD_RTOL = 5e-2
 ROUTE_GRAD_RTOL = 1e-1
 ROUTE_MARGIN = 1.25
-KERNEL_SOURCE = "perceptor_tpu_torch/csrc/flash_attention.cu"
+SOURCES = {
+    "flash_fwd": "perceptor_tpu_torch/csrc/flash_mma.cu",
+    "flash_dq": "perceptor_tpu_torch/csrc/flash_attention.cu",
+    "flash_dkv": "perceptor_tpu_torch/csrc/flash_mma.cu",
+}
 REPLACES = {
     "flash_fwd": "perceptor_tpu/ops/flash_attention_kernel.py:45",
     "flash_dq": "perceptor_tpu/ops/flash_attention_kernel.py:126",
@@ -153,7 +168,10 @@ def phase_kernels(fa) -> dict:
         dk_ref, dv_ref = fa.flash_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale)
         dq = fa.flash_dq(q, k, v, do, lse_ref, delta, scale)
         dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)
+        dk2, dv2 = fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)
         torch.cuda.synchronize()
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash_dkv at {site}: two launches differ")
         checks = {
             "o": ("flash_fwd", o, o_ref), "dq": ("flash_dq", dq, dq_ref),
             "dk": ("flash_dkv", dk, dk_ref), "dv": ("flash_dkv", dv, dv_ref),
@@ -170,15 +188,16 @@ def phase_kernels(fa) -> dict:
         if not lse_err <= LSE_ATOL:
             raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {LSE_ATOL}")
         record["lse"] = {"max_abs_err": lse_err, "tol": LSE_ATOL}
+        record["dkv_bitwise_repeatable"] = True
         sites.append(record)
     extra = []
-    for i, (dtype, b, h, s, d) in enumerate(EXTRA_CASES):
+    for i, (dtype, b, h, sq, sk, d) in enumerate(EXTRA_CASES):
         gen = torch.Generator(device="cuda").manual_seed(50 + i)
         # (B, S, H * D) projections viewed as (B, H, S, D): strided inputs
         q, k, v, do = (
             torch.randn((b, s, h * d), generator=gen, device="cuda")
             .to(getattr(torch, dtype)).view(b, s, h, d).transpose(1, 2)
-            for _ in range(4)
+            for s in (sq, sk, sk, sq)
         )
         scale = 1.0 / math.sqrt(d)
         qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -192,12 +211,43 @@ def phase_kernels(fa) -> dict:
         rtol = FP32_RTOL if dtype == "float32" else KERNEL_RTOL
         for out_name, got, ref in zip(("o", "dq", "dk", "dv"), outs, refs):
             err, tol = float((got.float() - ref).abs().max()), rtol * float(ref.abs().max())
-            case = [dtype, b, h, s, d]
+            case = [dtype, b, h, sq, sk, d]
             if not err <= tol:
                 raise AssertionError(f"{out_name} at {case}: max |err| {err} > {tol}")
             extra.append({"case": case, "out": out_name, "max_abs_err": err, "tol": tol})
     emit({"phase": "kernels", "ok": True, "sites": sites, "off_path": extra})
     return errors
+
+
+def phase_kernel_info(fa, library) -> None:
+    """Per kernel at each site's head_dim: registers, local bytes, dynamic
+    shared bytes, threads and resident blocks per SM from the CUDA runtime,
+    and ptxas's spill report from the build."""
+    import re
+
+    import torch
+
+    info = [
+        {"kernel": name, "site": site, "head_dim": d,
+         **fa.kernel_info(name.removeprefix("flash_"), d, torch.bfloat16)}
+        for site, _, _, _, d, _ in SITES for name in REPLACES
+    ]
+    ptxas = []
+    report = library.with_suffix(".ptxas.txt")
+    for mangled, body in re.findall(
+        r"Function properties for (\S+)\n(.*?)(?=Compile time|\Z)", report.read_text(), re.S
+    ):
+        kernel = re.search(r"((?:flash_)?(?:fwd|dq|dkv)_kernel)I", mangled)
+        numbers = lambda pattern: [int(x) for x in re.findall(pattern, body)]
+        ptxas.append({
+            "kernel": kernel.group(1) if kernel else mangled,
+            "bf16": "bfloat16" in mangled,
+            "template": [int(x) for x in re.findall(r"Li(\d+)E", mangled)],
+            "registers": numbers(r"Used (\d+) registers"),
+            "spill_stores": numbers(r"(\d+) bytes spill stores"),
+            "spill_loads": numbers(r"(\d+) bytes spill loads"),
+        })
+    emit({"phase": "kernel_info", "ok": True, "runtime": info, "ptxas": ptxas})
 
 
 def phase_guided_step(fa, step) -> dict:
@@ -317,7 +367,10 @@ def phase_profile(step) -> dict:
     ]
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    flash_us = sum(e.self_device_time_total for e in kernels if "flash_" in e.key)
+    # flash_attention.cu's kernels are flash_*_kernel, flash_mma.cu's flash::*
+    flash_us = sum(
+        e.self_device_time_total for e in kernels if "flash_" in e.key or "flash::" in e.key
+    )
     record = {
         "phase": "profile", "ok": True, "step_wall_ms": wall_ms,
         "device_ms": total_us / 1e3, "device_busy_share": total_us / 1e3 / wall_ms,
@@ -384,7 +437,7 @@ def kernel_table(rows, launches, errors) -> list:
         t_ops = sum(r["flops"] * r["per_step"] for r in mine)
         t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
         table.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errors[name], "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
             "bound_ms": per_step("bound_ms"),
@@ -425,6 +478,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     errors = phase_kernels(fa)
+    phase_kernel_info(fa, library)
     t0 = time.perf_counter()
     step = guided_step.build("sd-v1-512", device="cuda", seed=0)
     emit({"phase": "model_build", "ok": True, "seconds": time.perf_counter() - t0})

@@ -1,9 +1,10 @@
-// Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels.
+// Flash attention for Hopper (sm_90a): the C interface of the library, the
+// bf16 dq kernel and the fp32 kernels.
 //
 // Replaces the Pallas TPU kernels of perceptor_tpu/ops/flash_attention_kernel.py:
-//   flash_fwd_kernel  <- _fwd_kernel     (launched by _forward)
-//   flash_dq_kernel   <- _bwd_dq_kernel  (launched by _backward)
-//   flash_dkv_kernel  <- _bwd_dkv_kernel (launched by _backward)
+//   flash_fwd_kernel  <- _fwd_kernel     (fp32; bf16 is flash_mma.cu's fwd_kernel)
+//   flash_dq_kernel   <- _bwd_dq_kernel  (bf16 and fp32)
+//   flash_dkv_kernel  <- _bwd_dkv_kernel (fp32; bf16 is flash_mma.cu's dkv_kernel)
 //
 // What bounds them on this card: tensor-core operations. At the shapes of
 // the guided SD step (S = 1024..4096, head_dim 40/80/512) each site does
@@ -11,12 +12,12 @@
 // q/k/v/o, i.e. hundreds of FLOPs per byte, above the H100's ~295 FLOP/B
 // ridge. The design keeps the S x S scores out of device memory (online
 // softmax in the forward, recomputation of P from the saved row logsumexp
-// in the backward) and puts every bf16 product on the tensor cores through
-// WMMA 16x16x16 fragments with fp32 accumulation. It is the simple first
-// version: synchronous tile loads into shared memory and all intermediates
-// (scores, probabilities, accumulators) in shared memory; wgmma/TMA and
-// register-resident accumulators are later work. fp32 inputs take the same
-// kernels with a scalar (CUDA-core) product in place of WMMA.
+// in the backward). The kernels here are the simple first version:
+// synchronous tile loads into shared memory and all intermediates (scores,
+// probabilities, accumulators) in shared memory, bf16 products on WMMA
+// 16x16x16 fragments with fp32 accumulation (dq), fp32 products on a scalar
+// loop. The register-resident redesign of the bf16 forward and dk/dv is in
+// flash_mma.cu; dq's is later work.
 //
 // Layout: (batch, heads, seq, head_dim) with any batch/head/seq strides
 // (unit head_dim stride, 16-byte aligned rows); outputs are contiguous.
@@ -27,7 +28,9 @@
 // accumulator and no atomics are needed (dq over K/V tiles, dk/dv over Q
 // tiles), which keeps results deterministic.
 //
-// Every C entry point returns cudaGetLastError() after its launch.
+// Every C entry point returns cudaGetLastError() after its launch, and
+// cudaErrorInvalidValue for a (block_q, block_k) pair that has no
+// instantiation or does not divide the sequence lengths.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,16 +40,18 @@
 
 #include <type_traits>
 
+#include "flash_common.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kThreads = 128;  // four warps per block
+using flash::Args;
+using flash::kMaxSmem;
+using flash::Strides;
 
-struct Strides {
-  long long b, h, s;
-};
+constexpr int kThreads = 128;  // four warps per block
 
 constexpr size_t up128(size_t x) { return (x + 127) & ~size_t(127); }
 
@@ -428,17 +433,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- launchers ------------------------------------------------------------------
 
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use
-
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *out0, *out1, *lse_out;
-  int B, H, Sq, Sk, D;
-  Strides sq, sk, sv, sdo;
-  float scale;
-  cudaStream_t stream;
-};
-
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -451,6 +445,7 @@ cudaError_t launch_fwd(const Args& a) {
   static_assert(smem <= kMaxSmem, "shared memory above the 227 KB limit");
   cudaError_t err = prepare(flash_fwd_kernel<T, BQ, BK, DP>, smem);
   if (err != cudaSuccess) return err;
+  if (a.info) return flash::describe(flash_fwd_kernel<T, BQ, BK, DP>, kThreads, smem, a.info);
   flash_fwd_kernel<T, BQ, BK, DP><<<dim3(a.Sq / BQ, a.H, a.B), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out0), static_cast<float*>(a.lse_out), a.H, a.Sq, a.Sk, a.D, a.sq,
@@ -464,6 +459,7 @@ cudaError_t launch_dq(const Args& a) {
   static_assert(smem <= kMaxSmem, "shared memory above the 227 KB limit");
   cudaError_t err = prepare(flash_dq_kernel<T, BQ, BK, DP>, smem);
   if (err != cudaSuccess) return err;
+  if (a.info) return flash::describe(flash_dq_kernel<T, BQ, BK, DP>, kThreads, smem, a.info);
   flash_dq_kernel<T, BQ, BK, DP><<<dim3(a.Sq / BQ, a.H, a.B), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
@@ -478,6 +474,7 @@ cudaError_t launch_dkv(const Args& a) {
   static_assert(smem <= kMaxSmem, "shared memory above the 227 KB limit");
   cudaError_t err = prepare(flash_dkv_kernel<T, BQ, BK, DP>, smem);
   if (err != cudaSuccess) return err;
+  if (a.info) return flash::describe(flash_dkv_kernel<T, BQ, BK, DP>, kThreads, smem, a.info);
   flash_dkv_kernel<T, BQ, BK, DP><<<dim3(a.Sk / BK, a.H, a.B), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
@@ -486,15 +483,18 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// Tile sizes (block_q, block_k) per padded head_dim, kept in step with
-// ops/flash_attention_kernel.py `_kernel_blocks`. bf16: 64 x 64 up to
-// d = 128; d = 512 (the SD VAE's single head) uses 16-row Q tiles and 32-
-// (fwd, dq) or 16-row (dkv) K/V tiles to fit shared memory. fp32 tiles are
-// half as tall (32 x 32 up to d = 128; 16 x 16 for dq and dkv at d = 512).
+// Tile sizes (block_q, block_k) per padded head_dim; the caller passes the
+// pair that ops/flash_attention_kernel.py `_kernel_blocks` gives, and a pair
+// without an instantiation here is refused. bf16 dq: 64 x 64 up to
+// d = 128; d = 512 (the SD VAE's single head) uses 16-row Q tiles and
+// 32-row K/V tiles to fit shared memory. fp32 tiles are half as tall
+// (32 x 32 up to d = 128; 16 x 32 for fwd and 16 x 16 for dq and dkv at
+// d = 512).
 enum Kernel { kFwd, kDq, kDkv };
 
 template <Kernel K, typename T, int BQ, int BK, int DP>
 cudaError_t launch(const Args& a) {
+  if (a.block_q != BQ || a.block_k != BK) return cudaErrorInvalidValue;
   if constexpr (K == kFwd) {
     return launch_fwd<T, BQ, BK, DP>(a);
   } else if constexpr (K == kDq) {
@@ -504,12 +504,11 @@ cudaError_t launch(const Args& a) {
   }
 }
 
-template <Kernel K>
-cudaError_t dispatch_bf16(const Args& a) {
-  if (a.D <= 48) return launch<K, bf16, 64, 64, 48>(a);
-  if (a.D <= 80) return launch<K, bf16, 64, 64, 80>(a);
-  if (a.D <= 128) return launch<K, bf16, 64, 64, 128>(a);
-  if (a.D <= 512) return launch<K, bf16, 16, (K == kDkv ? 16 : 32), 512>(a);
+cudaError_t dispatch_dq_bf16(const Args& a) {
+  if (a.D <= 48) return launch<kDq, bf16, 64, 64, 48>(a);
+  if (a.D <= 80) return launch<kDq, bf16, 64, 64, 80>(a);
+  if (a.D <= 128) return launch<kDq, bf16, 64, 64, 128>(a);
+  if (a.D <= 512) return launch<kDq, bf16, 16, 32, 512>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -522,8 +521,18 @@ cudaError_t dispatch_f32(const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+cudaError_t dispatch(Kernel kernel, bool is_f32, const Args& a) {
+  if (a.D <= 0 || a.D % 8 || a.block_q <= 0 || a.block_k <= 0 || a.Sq % a.block_q ||
+      a.Sk % a.block_k)
+    return cudaErrorInvalidValue;
+  if (kernel == kFwd) return is_f32 ? dispatch_f32<kFwd>(a) : flash::fwd_bf16(a);
+  if (kernel == kDq) return is_f32 ? dispatch_f32<kDq>(a) : dispatch_dq_bf16(a);
+  return is_f32 ? dispatch_f32<kDkv>(a) : flash::dkv_bf16(a);
+}
+
 Args make_args(const void* q, const void* k, const void* v, int B, int H, int Sq, int Sk,
-               int D, const long long* st, float scale, void* stream) {
+               int D, const long long* st, float scale, int block_q, int block_k,
+               void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -533,6 +542,8 @@ Args make_args(const void* q, const void* k, const void* v, int B, int H, int Sq
   a.Sq = Sq;
   a.Sk = Sk;
   a.D = D;
+  a.block_q = block_q;
+  a.block_k = block_k;
   a.sq = Strides{st[0], st[1], st[2]};
   a.sk = Strides{st[3], st[4], st[5]};
   a.sv = Strides{st[6], st[7], st[8]};
@@ -547,37 +558,51 @@ Args make_args(const void* q, const void* k, const void* v, int B, int H, int Sq
 // C interface. `strides` holds (batch, head, seq) element strides of q, k,
 // v and, for the backward, do: 12 values (the forward reads the first 9).
 // `is_f32` selects fp32 over bf16 inputs; lse and delta are always fp32.
+// (block_q, block_k) is the tile pair of the caller's table.
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int B, int H, int Sq, int Sk, int D, const long long* strides,
-                         float scale, int is_f32, void* stream) {
-  Args a = make_args(q, k, v, B, H, Sq, Sk, D, strides, scale, stream);
+                         float scale, int is_f32, int block_q, int block_k, void* stream) {
+  Args a = make_args(q, k, v, B, H, Sq, Sk, D, strides, scale, block_q, block_k, stream);
   a.out0 = o;
   a.lse_out = lse;
-  return is_f32 ? dispatch_f32<kFwd>(a) : dispatch_bf16<kFwd>(a);
+  return dispatch(kFwd, is_f32, a);
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, int B, int H, int Sq,
                         int Sk, int D, const long long* strides, float scale, int is_f32,
-                        void* stream) {
-  Args a = make_args(q, k, v, B, H, Sq, Sk, D, strides, scale, stream);
+                        int block_q, int block_k, void* stream) {
+  Args a = make_args(q, k, v, B, H, Sq, Sk, D, strides, scale, block_q, block_k, stream);
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;
   a.out0 = dq;
-  return is_f32 ? dispatch_f32<kDq>(a) : dispatch_bf16<kDq>(a);
+  return dispatch(kDq, is_f32, a);
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int B,
                          int H, int Sq, int Sk, int D, const long long* strides,
-                         float scale, int is_f32, void* stream) {
-  Args a = make_args(q, k, v, B, H, Sq, Sk, D, strides, scale, stream);
+                         float scale, int is_f32, int block_q, int block_k, void* stream) {
+  Args a = make_args(q, k, v, B, H, Sq, Sk, D, strides, scale, block_q, block_k, stream);
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;
   a.out0 = dk;
   a.out1 = dv;
-  return is_f32 ? dispatch_f32<kDkv>(a) : dispatch_bf16<kDkv>(a);
+  return dispatch(kDkv, is_f32, a);
+}
+
+// Launches nothing: fills info[5] = {registers, local bytes, dynamic shared
+// bytes, threads, resident blocks per SM} of the kernel (0 fwd, 1 dq, 2 dkv)
+// that a launch with this head_dim, dtype and tile pair would run.
+extern "C" int flash_describe(int kernel, int D, int is_f32, int block_q, int block_k,
+                              int* info) {
+  if (kernel < kFwd || kernel > kDkv) return cudaErrorInvalidValue;
+  const long long strides[12] = {};
+  Args a = make_args(nullptr, nullptr, nullptr, 1, 1, block_q, block_k, D, strides, 1.0f,
+                     block_q, block_k, nullptr);
+  a.info = info;
+  return dispatch(static_cast<Kernel>(kernel), is_f32, a);
 }

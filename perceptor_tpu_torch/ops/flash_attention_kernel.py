@@ -7,11 +7,16 @@ Counterpart of perceptor_tpu/ops/flash_attention_kernel.py (Pallas TPU):
     flash_dq       <- _backward / _bwd_dq_kernel
     flash_dkv      <- _backward / _bwd_dkv_kernel
 
-Layout (batch, heads, seq, head_dim). The kernels live in
-`csrc/flash_attention.cu`, are compiled by nvcc for sm_90a into `build/`
-at first use and loaded with ctypes. On a CPU tensor each wrapper runs its
-plain version; on a CUDA tensor it launches its kernel or raises. Each
-wrapper counts its kernel launches in `LAUNCHES`.
+Layout (batch, heads, seq, head_dim). The kernels live in `csrc/`:
+`flash_mma.cu` holds the bf16 forward and dk/dv (mma.sync with S, P and the
+accumulators in registers), `flash_attention.cu` the C interface, the dq
+kernel and the fp32 kernels. Every source there is compiled by nvcc for
+sm_90a into one library in `build/` at first use and loaded with ctypes.
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises. Each wrapper counts its kernel launches in
+`LAUNCHES`. `_TILES` is the one table of tile sizes: each launch passes its
+(block_q, block_k) pair, and the C dispatch refuses a pair it has not
+instantiated.
 
 Backward: the two-kernel scheme of the JAX package. The residuals
 (q, k, v, o, lse) let each kernel recompute p = exp(scale * q k^T - lse)
@@ -34,12 +39,11 @@ from typing import Optional, Tuple
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -Xptxas -v: each kernel's registers and spills go to the build report
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_DIM = 512
 
 # kernel launches per wrapper, reset by callers that need to prove a path
@@ -92,12 +96,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    # q, k, v, o, lse | B, H, Sq, Sk, D | strides | scale, is_f32, stream
-    "flash_fwd": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, o, lse | B, H, Sq, Sk, D | strides | scale, is_f32, block_q,
+    # block_k, stream
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _I, _I, _P],
     # q, k, v, do, lse, delta, dq | ... same
-    "flash_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
+    "flash_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _I, _P],
     # q, k, v, do, lse, delta, dk, dv | ... same
-    "flash_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
+    "flash_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _I, _I, _P],
+    # kernel (0 fwd, 1 dq, 2 dkv), D, is_f32, block_q, block_k, int[5] out
+    "flash_describe": [_I] * 5 + [_P],
 }
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -113,21 +120,52 @@ def _nvcc() -> str:
 
 
 def build_library() -> Path:
-    """Compile csrc/flash_attention.cu for sm_90a into build/ (once per
-    source version) and return the shared library's path."""
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = _BUILD_DIR / f"libflash_attention_{digest.hexdigest()[:12]}.so"
+    """Compile every source under csrc/ for sm_90a (one nvcc per .cu file,
+    all started together) and link them into one shared library in build/,
+    once per version of the sources and flags; return its path. The
+    compilers' reports (ptxas registers and spills per kernel) are kept
+    beside it as `<library>.ptxas.txt`."""
+    files = sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    tag = digest.hexdigest()[:12]
+    out = _BUILD_DIR / f"libflash_attention_{tag}.so"
     if out.exists():
         return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = _BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for src in (f for f in files if f.suffix == ".cu"):
+            obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+            with open(log, "w") as sink:
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                jobs.append((src, obj, log, subprocess.Popen(cmd, stdout=sink, stderr=sink)))
+        reports = []
+        for src, _, log, proc in jobs:
+            proc.wait()
+            reports.append(f"== {src.name}\n{log.read_text()}")
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n{reports[-1][-8000:]}"
+                )
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        out.with_suffix(".ptxas.txt").write_text("\n".join(reports))
+        os.replace(tmp, out)
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -170,8 +208,13 @@ def _check_cuda_inputs(named, seq_dims):
 
 
 def _check_lse(name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {device}")
+    # the kernels copy lse and delta 16 bytes at a time
+    if (
+        t.device != device or t.dtype != torch.float32 or t.shape != shape
+        or not t.is_contiguous() or t.data_ptr() % 16
+    ):
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 {shape} "
+                         f"tensor on {device}")
 
 
 def _strides(*tensors):
@@ -186,25 +229,54 @@ def _raise_on_error(name: str, err: int):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+# (block_q, block_k) of each kernel by dtype and head_dim: rows of (largest
+# head_dim, tiles). The wrappers pass the pair to the C entry points, whose
+# dispatch returns an error for a pair it has not instantiated.
+_TILES = {
+    (torch.bfloat16, "fwd"): ((48, (128, 64)), (128, (64, 64)), (512, (32, 32))),
+    (torch.bfloat16, "dq"): ((128, (64, 64)), (512, (16, 32))),
+    (torch.bfloat16, "dkv"): ((80, (64, 64)), (128, (32, 64)), (512, (32, 32))),
+    (torch.float32, "fwd"): ((128, (32, 32)), (512, (16, 32))),
+    (torch.float32, "dq"): ((128, (32, 32)), (512, (16, 16))),
+    (torch.float32, "dkv"): ((128, (32, 32)), (512, (16, 16))),
+}
+
+
 def _kernel_blocks(d: int, kernel: str, dtype: torch.dtype):
-    """(block_q, block_k) the CUDA kernel uses for this head_dim and dtype
-    (kept in step with the dispatch in csrc/flash_attention.cu)."""
-    if dtype == torch.bfloat16:
-        if d > 128:
-            return {"fwd": (16, 32), "dq": (16, 32), "dkv": (16, 16)}[kernel]
-        return 64, 64
-    if d > 128:
-        return {"fwd": (16, 32), "dq": (16, 16), "dkv": (16, 16)}[kernel]
-    return 32, 32
+    """(block_q, block_k) the CUDA kernel uses for this head_dim and dtype."""
+    for max_d, blocks in _TILES[(dtype, kernel)]:
+        if d <= max_d:
+            return blocks
+    raise ValueError(f"head_dim {d} above {MAX_HEAD_DIM}")
 
 
 def _check_blocks(sq: int, sk: int, d: int, kernel: str, dtype: torch.dtype):
+    """The kernel's (block_q, block_k), after checking that they divide the
+    sequence lengths."""
     bq, bk = _kernel_blocks(d, kernel, dtype)
     if sq % bq or sk % bk:
         raise ValueError(
             f"sequence lengths ({sq}, {sk}) must be multiples of the {kernel} "
             f"kernel's blocks ({bq}, {bk})"
         )
+    return bq, bk
+
+
+_KERNEL_IDS = {"fwd": 0, "dq": 1, "dkv": 2}
+
+
+def kernel_info(kernel: str, d: int, dtype: torch.dtype) -> dict:
+    """Registers, local (spill and stack) bytes, dynamic shared bytes, threads
+    and resident blocks per SM of the CUDA kernel that `kernel` ("fwd", "dq"
+    or "dkv") runs at this head_dim and dtype, read from the CUDA runtime."""
+    bq, bk = _kernel_blocks(d, kernel, dtype)
+    info = (ctypes.c_int * 5)()
+    err = _library().flash_describe(
+        _KERNEL_IDS[kernel], d, dtype == torch.float32, bq, bk, info
+    )
+    _raise_on_error(f"flash_describe({kernel}, {d})", err)
+    keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
+    return {"block_q": bq, "block_k": bk, **dict(zip(keys, info))}
 
 
 # -- wrappers --------------------------------------------------------------
@@ -223,14 +295,14 @@ def flash_forward(q, k, v, scale: float):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _check_cuda_inputs([("q", q), ("k", k), ("v", v)], [sq, sk, sk])
-    _check_blocks(sq, sk, d, "fwd", q.dtype)
+    bq, bk = _check_blocks(sq, sk, d, "fwd", q.dtype)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _library().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, sq, sk, d, _strides(q, k, v), float(scale), q.dtype == torch.float32,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            bq, bk, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on_error("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
@@ -243,8 +315,8 @@ def _bwd_checks(q, k, v, do, lse, delta, kernel):
     _check_cuda_inputs([("q", q), ("k", k), ("v", v), ("do", do)], [sq, sk, sk, sq])
     _check_lse("lse", lse, (b, h, sq), q.device)
     _check_lse("delta", delta, (b, h, sq), q.device)
-    _check_blocks(sq, sk, d, kernel, q.dtype)
-    return b, h, sq, sk, d
+    bq, bk = _check_blocks(sq, sk, d, kernel, q.dtype)
+    return b, h, sq, sk, d, bq, bk
 
 
 def flash_dq(q, k, v, do, lse, delta, scale: float):
@@ -252,13 +324,13 @@ def flash_dq(q, k, v, do, lse, delta, scale: float):
     delta = rowsum(o * do) in fp32."""
     if not _device_check(q):
         return flash_dq_plain(q, k, v, do, lse, delta, scale)
-    b, h, sq, sk, d = _bwd_checks(q, k, v, do, lse, delta, "dq")
+    b, h, sq, sk, d, bq, bk = _bwd_checks(q, k, v, do, lse, delta, "dq")
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _library().flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d, _strides(q, k, v, do),
-            float(scale), q.dtype == torch.float32,
+            float(scale), q.dtype == torch.float32, bq, bk,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on_error("flash_dq", err)
@@ -270,14 +342,14 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float):
     """(dk, dv) of softmax(scale q k^T) v, same inputs as `flash_dq`."""
     if not _device_check(q):
         return flash_dkv_plain(q, k, v, do, lse, delta, scale)
-    b, h, sq, sk, d = _bwd_checks(q, k, v, do, lse, delta, "dkv")
+    b, h, sq, sk, d, bq, bk = _bwd_checks(q, k, v, do, lse, delta, "dkv")
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
         err = _library().flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
-            _strides(q, k, v, do), float(scale), q.dtype == torch.float32,
+            _strides(q, k, v, do), float(scale), q.dtype == torch.float32, bq, bk,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on_error("flash_dkv", err)

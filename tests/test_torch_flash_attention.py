@@ -130,3 +130,22 @@ def test_flash_route_rule():
     with pytest.raises(ValueError):
         tattn.attention(*(torch.zeros(1, 1, 8, 8) for _ in range(3)),
                         mask=torch.zeros(1, 1, 8, 8), use_flash=True)
+
+
+def test_route_shapes_fit_every_kernel_tile():
+    """Every shape `flash_route` admits (S a multiple of 128 from 1024, here
+    up to 768px's 9216; head_dim a multiple of 8 up to 512) passes the
+    block check of all three kernels in bf16 and fp32, so the route never
+    sends a shape the kernels refuse. The pair checked is the one the
+    wrappers pass to the C dispatch."""
+    cuda = types.SimpleNamespace(is_cuda=True)
+    for seq in range(1024, 9216 + 1, 128):
+        assert tattn.flash_route(seq, seq, False, cuda)
+        for d in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+            for dtype in tfa.DTYPES:
+                for kernel in ("fwd", "dq", "dkv"):
+                    assert tfa._check_blocks(seq, seq, d, kernel, dtype) == (
+                        tfa._kernel_blocks(d, kernel, dtype)
+                    )
+    with pytest.raises(ValueError):
+        tfa._kernel_blocks(tfa.MAX_HEAD_DIM + 8, "fwd", torch.bfloat16)
