@@ -9,12 +9,12 @@ exits non-zero without a result line:
 
 1. kernels      each CUDA kernel against its plain PyTorch version (fp32
                 arithmetic on the same bf16 inputs) at the three attention
-                shapes of the 512px guided step, two dk/dv launches held
-                bitwise equal there, and off the main path: fp32 inputs,
-                strided batch-2 bf16 inputs (S = 1024 and 768px's 2304),
-                d = 512 at S = 1024, and K/V of a single tile; then each
-                kernel's registers, spills, shared memory and resident
-                blocks per SM;
+                shapes of the 512px guided step, two dq and two dk/dv
+                launches held bitwise equal there, and off the main path:
+                fp32 inputs, strided batch-2 bf16 inputs (S = 1024 and
+                768px's 2304), d = 512 at S = 1024, and K/V of a single
+                tile; then each kernel's registers, spills, shared memory
+                and resident blocks per SM;
 2. guided_step  the full-width main path (SD-1.x UNet + VAE at 512px, CLIP
                 ViT-B/32, batch 1, random weights from seed 0) for 5 steps:
                 finite latents and loss, exactly 11 launches of each kernel
@@ -58,8 +58,8 @@ LSE_ATOL = 1e-3
 # version's fp32 arithmetic up to summation order, so 1e-4) and bf16 inputs
 # (KERNEL_RTOL), all viewed from (B, S, H * D) projections as the UNet
 # passes them: batch 2 at S = 1024 and at 768px's S = 2304, the VAE's
-# d = 512 at S = 1024, and Sk of a single K/V tile of the bf16 forward and
-# dk/dv (64 keys at d = 40, 32 at d = 512).
+# d = 512 at S = 1024, and Sk of a single K/V tile of the three bf16
+# kernels (64 keys at d = 40, 32 at d = 512).
 # (dtype, batch, heads, seq_q, seq_k, head_dim)
 FP32_RTOL = 1e-4
 EXTRA_CASES = (
@@ -82,7 +82,7 @@ ROUTE_GRAD_RTOL = 1e-1
 ROUTE_MARGIN = 1.25
 SOURCES = {
     "flash_fwd": "perceptor_tpu_torch/csrc/flash_mma.cu",
-    "flash_dq": "perceptor_tpu_torch/csrc/flash_attention.cu",
+    "flash_dq": "perceptor_tpu_torch/csrc/flash_mma.cu",
     "flash_dkv": "perceptor_tpu_torch/csrc/flash_mma.cu",
 }
 REPLACES = {
@@ -167,9 +167,12 @@ def phase_kernels(fa) -> dict:
         dq_ref = fa.flash_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale)
         dk_ref, dv_ref = fa.flash_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale)
         dq = fa.flash_dq(q, k, v, do, lse_ref, delta, scale)
+        dq2 = fa.flash_dq(q, k, v, do, lse_ref, delta, scale)
         dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)
         dk2, dv2 = fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)
         torch.cuda.synchronize()
+        if not torch.equal(dq, dq2):
+            raise AssertionError(f"flash_dq at {site}: two launches differ")
         if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
             raise AssertionError(f"flash_dkv at {site}: two launches differ")
         checks = {
@@ -188,6 +191,7 @@ def phase_kernels(fa) -> dict:
         if not lse_err <= LSE_ATOL:
             raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {LSE_ATOL}")
         record["lse"] = {"max_abs_err": lse_err, "tol": LSE_ATOL}
+        record["dq_bitwise_repeatable"] = True
         record["dkv_bitwise_repeatable"] = True
         sites.append(record)
     extra = []
@@ -367,7 +371,8 @@ def phase_profile(step) -> dict:
     ]
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    # flash_attention.cu's kernels are flash_*_kernel, flash_mma.cu's flash::*
+    # flash_attention.cu's (fp32) kernels are flash_*_kernel, flash_mma.cu's
+    # (bf16: fwd, dq, dk/dv) flash::*
     flash_us = sum(
         e.self_device_time_total for e in kernels if "flash_" in e.key or "flash::" in e.key
     )
@@ -420,7 +425,17 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
                 "flops": flops, "bytes": nbytes,
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
             })
-    emit({"phase": "timings", "ok": True, "rows": rows})
+    # per guided step: the port's two backward kernels against SDPA's
+    # backward (its forward plus backward, less its forward)
+    def weighted(names, key):
+        return sum(r[key] * r["per_step"] for r in rows if r["kernel"] in names)
+
+    backward = {
+        "dq_plus_dkv_ms": weighted(("flash_dq", "flash_dkv"), "ms"),
+        "sdpa_bwd_ms": weighted(("flash_fwd",), "sdpa_fwd_bwd_ms")
+        - weighted(("flash_fwd",), "sdpa_fwd_ms"),
+    }
+    emit({"phase": "timings", "ok": True, "rows": rows, "backward_per_step": backward})
     return rows
 
 

@@ -1,23 +1,21 @@
-// Flash attention for Hopper (sm_90a): the C interface of the library, the
-// bf16 dq kernel and the fp32 kernels.
+// Flash attention for Hopper (sm_90a): the C interface of the library and
+// the fp32 kernels. The bf16 kernels, which the guided SD step runs, are in
+// flash_mma.cu (mma.sync, intermediates in registers).
 //
-// Replaces the Pallas TPU kernels of perceptor_tpu/ops/flash_attention_kernel.py:
-//   flash_fwd_kernel  <- _fwd_kernel     (fp32; bf16 is flash_mma.cu's fwd_kernel)
-//   flash_dq_kernel   <- _bwd_dq_kernel  (bf16 and fp32)
-//   flash_dkv_kernel  <- _bwd_dkv_kernel (fp32; bf16 is flash_mma.cu's dkv_kernel)
+// Replaces the Pallas TPU kernels of perceptor_tpu/ops/flash_attention_kernel.py
+// for fp32 inputs:
+//   flash_fwd_kernel  <- _fwd_kernel     (bf16: flash_mma.cu's fwd_kernel)
+//   flash_dq_kernel   <- _bwd_dq_kernel  (bf16: flash_mma.cu's dq_kernel)
+//   flash_dkv_kernel  <- _bwd_dkv_kernel (bf16: flash_mma.cu's dkv_kernel)
 //
-// What bounds them on this card: tensor-core operations. At the shapes of
-// the guided SD step (S = 1024..4096, head_dim 40/80/512) each site does
-// 4*S^2*d (fwd), 6*S^2*d (dq) and 8*S^2*d (dkv) FLOPs over a few MB of
-// q/k/v/o, i.e. hundreds of FLOPs per byte, above the H100's ~295 FLOP/B
-// ridge. The design keeps the S x S scores out of device memory (online
-// softmax in the forward, recomputation of P from the saved row logsumexp
-// in the backward). The kernels here are the simple first version:
-// synchronous tile loads into shared memory and all intermediates (scores,
-// probabilities, accumulators) in shared memory, bf16 products on WMMA
-// 16x16x16 fragments with fp32 accumulation (dq), fp32 products on a scalar
-// loop. The register-resident redesign of the bf16 forward and dk/dv is in
-// flash_mma.cu; dq's is later work.
+// What bounds them on this card: fp32 arithmetic outside the tensor cores.
+// Each site does 4*S^2*d (fwd), 6*S^2*d (dq) and 8*S^2*d (dkv) FLOPs over a
+// few MB of q/k/v/o. The design keeps the S x S scores out of device memory
+// (online softmax in the forward, recomputation of P from the saved row
+// logsumexp in the backward). The kernels here are the simple first
+// version: synchronous tile loads into shared memory, all intermediates
+// (scores, probabilities, accumulators) in shared memory, products on a
+// scalar loop.
 //
 // Layout: (batch, heads, seq, head_dim) with any batch/head/seq strides
 // (unit head_dim stride, 16-byte aligned rows); outputs are contiguous.
@@ -32,18 +30,11 @@
 // cudaErrorInvalidValue for a (block_q, block_k) pair that has no
 // instantiation or does not divide the sequence lengths.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "flash_common.cuh"
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -55,63 +46,23 @@ constexpr int kThreads = 128;  // four warps per block
 
 constexpr size_t up128(size_t x) { return (x + 127) & ~size_t(127); }
 
-template <typename T>
-__device__ __forceinline__ T to_elem(float x);
-template <>
-__device__ __forceinline__ bf16 to_elem<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ float to_elem<float>(float x) {
-  return x;
-}
-
-// C (M x N, fp32 in shared memory) (+)= A (M x K) . B (K x N), operands in
-// shared memory with WMMA's layout semantics: row-major A is A[m * lda + k],
-// column-major A is A[k * lda + m], row-major B is B[k * ldb + n],
-// column-major B is B[n * ldb + k]. bf16 operands go through WMMA (16x16
-// output tiles spread over the warps); fp32 operands through a scalar loop.
-template <typename T, typename LayoutA, typename LayoutB, int M, int N, int K>
-__device__ __forceinline__ void mma_tiles(const T* A, int lda, const T* B, int ldb,
+// C (M x N, fp32 in shared memory) (+)= A (M x K) . B (K x N), fp32
+// operands in shared memory, on a scalar loop: row-major A is
+// A[m * lda + k], column-major A is A[k * lda + m], row-major B is
+// B[k * ldb + n], column-major B is B[n * ldb + k].
+template <bool kRowA, bool kRowB, int M, int N, int K>
+__device__ __forceinline__ void mma_tiles(const float* A, int lda, const float* B, int ldb,
                                           float* C, int ldc, bool accumulate) {
-  constexpr bool kRowA = std::is_same<LayoutA, wmma::row_major>::value;
-  constexpr bool kRowB = std::is_same<LayoutB, wmma::row_major>::value;
-  if constexpr (std::is_same<T, float>::value) {
-    for (int i = threadIdx.x; i < M * N; i += kThreads) {
-      const int m = i / N, n = i % N;
-      float acc = accumulate ? C[m * ldc + n] : 0.0f;
+  for (int i = threadIdx.x; i < M * N; i += kThreads) {
+    const int m = i / N, n = i % N;
+    float acc = accumulate ? C[m * ldc + n] : 0.0f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float a = kRowA ? A[m * lda + k] : A[k * lda + m];
-        const float b = kRowB ? B[k * ldb + n] : B[n * ldb + k];
-        acc = fmaf(a, b, acc);
-      }
-      C[m * ldc + n] = acc;
+    for (int k = 0; k < K; ++k) {
+      const float a = kRowA ? A[m * lda + k] : A[k * lda + m];
+      const float b = kRowB ? B[k * ldb + n] : B[n * ldb + k];
+      acc = fmaf(a, b, acc);
     }
-  } else {
-    constexpr int TN = N / 16;
-    const int warp = threadIdx.x / 32;
-    for (int t = warp; t < (M / 16) * TN; t += kThreads / 32) {
-      const int tm = t / TN, tn = t % TN;
-      float* cptr = C + tm * 16 * ldc + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (accumulate) {
-        wmma::load_matrix_sync(c, cptr, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(c, 0.0f);
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
-        const bf16* aptr = kRowA ? A + tm * 16 * lda + kk : A + kk * lda + tm * 16;
-        const bf16* bptr = kRowB ? B + kk * ldb + tn * 16 : B + tn * 16 * ldb + kk;
-        wmma::load_matrix_sync(a, aptr, lda);
-        wmma::load_matrix_sync(b, bptr, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(cptr, c, ldc, wmma::mem_row_major);
-    }
+    C[m * ldc + n] = acc;
   }
 }
 
@@ -138,7 +89,7 @@ __device__ __forceinline__ void zero(float* dst, int n) {
 
 // row strides in shared memory: head-dim tiles, fp32 score tiles,
 // probability tiles, fp32 head-dim accumulators (padded against bank
-// conflicts, kept multiples of 8 / 4 elements as WMMA requires)
+// conflicts)
 template <int BQ, int BK, int DP>
 struct Ld {
   static constexpr int H = DP + 8, S = BK + 4, P = BK + 8, A = DP + 4;
@@ -204,8 +155,7 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, DP>(sK, L::H, kb + (long long)kt * BK * sk.s, sk.s, BK, D);
     load_tile<T, DP>(sV, L::H, vb + (long long)kt * BK * sv.s, sv.s, BK, D);
     __syncthreads();
-    mma_tiles<T, wmma::row_major, wmma::col_major, BQ, BK, DP>(sQ, L::H, sK, L::H, sS,
-                                                               L::S, false);
+    mma_tiles<true, false, BQ, BK, DP>(sQ, L::H, sK, L::H, sS, L::S, false);
     __syncthreads();
 
     const float* srow = sS + row * L::S + part * CPT;
@@ -220,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < CPT; ++c) {
       const float p = expf(srow[c] * scale - m_new);
       sum += p;
-      prow[c] = to_elem<T>(p);
+      prow[c] = static_cast<T>(p);
     }
     for (int off = TPR / 2; off > 0; off >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -236,8 +186,7 @@ __global__ void __launch_bounds__(kThreads)
       sAcc[r * L::A + c] *= sAlpha[r];
     }
     __syncthreads();
-    mma_tiles<T, wmma::row_major, wmma::row_major, BQ, DP, BK>(sP, L::P, sV, L::H, sAcc,
-                                                               L::A, true);
+    mma_tiles<true, true, BQ, DP, BK>(sP, L::P, sV, L::H, sAcc, L::A, true);
     __syncthreads();
   }
 
@@ -246,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
     const int r = i / D, c = i % D;
     const float l = sL[r];
     const float inv = l == 0.0f ? 1.0f : 1.0f / l;
-    o[(row0 + r) * D + c] = to_elem<T>(sAcc[r * L::A + c] * inv);
+    o[(row0 + r) * D + c] = static_cast<T>(sAcc[r * L::A + c] * inv);
   }
   for (int r = tid; r < BQ; r += kThreads)
     lse[row0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-37f));
@@ -313,26 +262,23 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, DP>(sK, L::H, kb + (long long)kt * BK * sk.s, sk.s, BK, D);
     load_tile<T, DP>(sV, L::H, vb + (long long)kt * BK * sv.s, sv.s, BK, D);
     __syncthreads();
-    mma_tiles<T, wmma::row_major, wmma::col_major, BQ, BK, DP>(sQ, L::H, sK, L::H, sS,
-                                                               L::S, false);
-    mma_tiles<T, wmma::row_major, wmma::col_major, BQ, BK, DP>(sDO, L::H, sV, L::H, sDP,
-                                                               L::S, false);
+    mma_tiles<true, false, BQ, BK, DP>(sQ, L::H, sK, L::H, sS, L::S, false);
+    mma_tiles<true, false, BQ, BK, DP>(sDO, L::H, sV, L::H, sDP, L::S, false);
     __syncthreads();
     for (int i = tid; i < BQ * BK; i += kThreads) {
       const int r = i / BK, c = i % BK;
       const float p = expf(sS[r * L::S + c] * scale - sLse[r]);
       const float ds = p * (sDP[r * L::S + c] - sDelta[r]) * scale;
-      sDS[r * L::P + c] = to_elem<T>(ds);
+      sDS[r * L::P + c] = static_cast<T>(ds);
     }
     __syncthreads();
-    mma_tiles<T, wmma::row_major, wmma::row_major, BQ, DP, BK>(sDS, L::P, sK, L::H, sAcc,
-                                                               L::A, true);
+    mma_tiles<true, true, BQ, DP, BK>(sDS, L::P, sK, L::H, sAcc, L::A, true);
     __syncthreads();
   }
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dq[(row0 + r) * D + c] = to_elem<T>(sAcc[r * L::A + c]);
+    dq[(row0 + r) * D + c] = static_cast<T>(sAcc[r * L::A + c]);
   }
 }
 
@@ -403,31 +349,27 @@ __global__ void __launch_bounds__(kThreads)
       sDelta[r] = delta[qrow0 + qt * BQ + r];
     }
     __syncthreads();
-    mma_tiles<T, wmma::row_major, wmma::col_major, BQ, BK, DP>(sQ, L::H, sK, L::H, sS,
-                                                               L::S, false);
-    mma_tiles<T, wmma::row_major, wmma::col_major, BQ, BK, DP>(sDO, L::H, sV, L::H, sDP,
-                                                               L::S, false);
+    mma_tiles<true, false, BQ, BK, DP>(sQ, L::H, sK, L::H, sS, L::S, false);
+    mma_tiles<true, false, BQ, BK, DP>(sDO, L::H, sV, L::H, sDP, L::S, false);
     __syncthreads();
     for (int i = tid; i < BQ * BK; i += kThreads) {
       const int r = i / BK, c = i % BK;
       const float p = expf(sS[r * L::S + c] * scale - sLse[r]);
       const float ds = p * (sDP[r * L::S + c] - sDelta[r]) * scale;
-      sP[r * L::P + c] = to_elem<T>(p);
-      sDS[r * L::P + c] = to_elem<T>(ds);
+      sP[r * L::P + c] = static_cast<T>(p);
+      sDS[r * L::P + c] = static_cast<T>(ds);
     }
     __syncthreads();
     // dv += p^T do ; dk += ds^T q  (p^T, ds^T read column-major in place)
-    mma_tiles<T, wmma::col_major, wmma::row_major, BK, DP, BQ>(sP, L::P, sDO, L::H, sDV,
-                                                               L::A, true);
-    mma_tiles<T, wmma::col_major, wmma::row_major, BK, DP, BQ>(sDS, L::P, sQ, L::H, sDK,
-                                                               L::A, true);
+    mma_tiles<false, true, BK, DP, BQ>(sP, L::P, sDO, L::H, sDV, L::A, true);
+    mma_tiles<false, true, BK, DP, BQ>(sDS, L::P, sQ, L::H, sDK, L::A, true);
     __syncthreads();
   }
 
   for (int i = tid; i < BK * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dk[(krow0 + r) * D + c] = to_elem<T>(sDK[r * L::A + c]);
-    dv[(krow0 + r) * D + c] = to_elem<T>(sDV[r * L::A + c]);
+    dk[(krow0 + r) * D + c] = static_cast<T>(sDK[r * L::A + c]);
+    dv[(krow0 + r) * D + c] = static_cast<T>(sDV[r * L::A + c]);
   }
 }
 
@@ -485,11 +427,9 @@ cudaError_t launch_dkv(const Args& a) {
 
 // Tile sizes (block_q, block_k) per padded head_dim; the caller passes the
 // pair that ops/flash_attention_kernel.py `_kernel_blocks` gives, and a pair
-// without an instantiation here is refused. bf16 dq: 64 x 64 up to
-// d = 128; d = 512 (the SD VAE's single head) uses 16-row Q tiles and
-// 32-row K/V tiles to fit shared memory. fp32 tiles are half as tall
-// (32 x 32 up to d = 128; 16 x 32 for fwd and 16 x 16 for dq and dkv at
-// d = 512).
+// without an instantiation here is refused. fp32: 32 x 32 up to d = 128;
+// at d = 512 (the SD VAE's single head) 16 x 32 for fwd and 16 x 16 for dq
+// and dkv, to fit shared memory. The bf16 tiles are in flash_mma.cu.
 enum Kernel { kFwd, kDq, kDkv };
 
 template <Kernel K, typename T, int BQ, int BK, int DP>
@@ -502,14 +442,6 @@ cudaError_t launch(const Args& a) {
   } else {
     return launch_dkv<T, BQ, BK, DP>(a);
   }
-}
-
-cudaError_t dispatch_dq_bf16(const Args& a) {
-  if (a.D <= 48) return launch<kDq, bf16, 64, 64, 48>(a);
-  if (a.D <= 80) return launch<kDq, bf16, 64, 64, 80>(a);
-  if (a.D <= 128) return launch<kDq, bf16, 64, 64, 128>(a);
-  if (a.D <= 512) return launch<kDq, bf16, 16, 32, 512>(a);
-  return cudaErrorInvalidValue;
 }
 
 template <Kernel K>
@@ -526,7 +458,7 @@ cudaError_t dispatch(Kernel kernel, bool is_f32, const Args& a) {
       a.Sk % a.block_k)
     return cudaErrorInvalidValue;
   if (kernel == kFwd) return is_f32 ? dispatch_f32<kFwd>(a) : flash::fwd_bf16(a);
-  if (kernel == kDq) return is_f32 ? dispatch_f32<kDq>(a) : dispatch_dq_bf16(a);
+  if (kernel == kDq) return is_f32 ? dispatch_f32<kDq>(a) : flash::dq_bf16(a);
   return is_f32 ? dispatch_f32<kDkv>(a) : flash::dkv_bf16(a);
 }
 

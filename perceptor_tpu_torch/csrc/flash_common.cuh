@@ -1,6 +1,6 @@
 // Launch arguments shared by the flash-attention sources of this directory:
-// flash_attention.cu (the C interface, dq and the fp32 kernels) and
-// flash_mma.cu (the bf16 forward and dk/dv on mma.sync).
+// flash_attention.cu (the C interface and the fp32 kernels) and
+// flash_mma.cu (the bf16 forward, dq and dk/dv on mma.sync).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,8 +46,9 @@ cudaError_t describe(Kernel kernel, int threads, size_t smem, int* info) {
   return err;
 }
 
-// bf16 forward and dk/dv on the tensor cores (flash_mma.cu)
+// bf16 forward, dq and dk/dv on the tensor cores (flash_mma.cu)
 cudaError_t fwd_bf16(const Args& a);
+cudaError_t dq_bf16(const Args& a);
 cudaError_t dkv_bf16(const Args& a);
 
 }  // namespace flash

@@ -1,32 +1,38 @@
-// Flash attention for Hopper (sm_90a), bf16: the forward and the dk/dv
-// backward, with the scores, the probabilities and the fp32 accumulators
-// held in registers.
+// Flash attention for Hopper (sm_90a), bf16: the forward and both backward
+// kernels, with the scores, the probabilities, their gradients and the fp32
+// accumulators held in registers.
 //
 // Replaces the Pallas TPU kernels of perceptor_tpu/ops/flash_attention_kernel.py:
 //   fwd_kernel  <- _fwd_kernel      (launched by _forward)
+//   dq_kernel   <- _bwd_dq_kernel   (launched by _backward)
 //   dkv_kernel  <- _bwd_dkv_kernel  (launched by _backward)
-// The dq kernel and the fp32 kernels are in flash_attention.cu.
+// The fp32 kernels are in flash_attention.cu.
 //
 // What bounds them: tensor-core operations. At the guided SD step's shapes
-// (S = 1024..4096, head_dim 40/80/512) the forward does 4*S^2*d and dk/dv
-// 8*S^2*d FLOPs over a few MB, hundreds of FLOPs per byte. So the design
-// keeps every S x S intermediate out of device memory and, unlike the first
-// version of these kernels, out of shared memory too:
+// (S = 1024..4096, head_dim 40/80/512) the forward does 4*S^2*d, dq 6*S^2*d
+// and dk/dv 8*S^2*d FLOPs over a few MB, hundreds of FLOPs per byte. So
+// the design keeps every S x S intermediate out of device memory and, unlike
+// the first version of these kernels, out of shared memory too:
 //
 // - Products are `mma.sync.m16n8k16` bf16 -> fp32 through inline PTX, with
 //   operands loaded by `ldmatrix` / `ldmatrix.trans`. Chosen over `wgmma`
 //   because its fp32 accumulator layout is, pair by pair, its A-operand
-//   layout: P (forward) and P^T, dS^T (dk/dv) are rounded to bf16 in
-//   registers and fed straight into the next product. Each warp owns a
+//   layout: P (forward), dS (dq) and P^T, dS^T (dk/dv) are rounded to bf16
+//   in registers and fed straight into the next product. Each warp owns a
 //   16-row slab and needs no descriptor, swizzle mode or warpgroup fence.
 // - Online softmax in registers: the row max and sum are reduced across
 //   the four lanes that share a row with __shfl_xor_sync; exponentials are
 //   ex2.approx on scores scaled by scale * log2(e); lse is written in
-//   natural-log units (m * ln 2 + ln l), as the backward reads it.
-// - The tiles of the looped-over sequence (K/V in the forward; Q, dO, lse
-//   and delta in dk/dv) are double-buffered with cp.async: the next tile's
-//   copies are issued before the current tile's products, and a tile costs
-//   two barriers. The block's own tile (Q, or K and V) is loaded once.
+//   natural-log units (m * ln 2 + ln l), as the backward reads it. dq
+//   recomputes P = exp(scale S - lse) from it; each lane holds lse and
+//   delta of its two rows in registers for the whole K/V loop.
+// - The tiles of the looped-over sequence (K/V in the forward and dq; Q,
+//   dO, lse and delta in dk/dv) are double-buffered with cp.async: the next
+//   tile's copies are issued before the current tile's products, and a tile
+//   costs two barriers. The block's own tiles (Q, Q and dO, or K and V) are
+//   loaded once; at d <= 128 the forward keeps its Q A-fragments in
+//   registers (for dq, keeping Q's and dO's saved no time on an H100 at
+//   d = 80 and spilled at d = 40, so it reloads them from shared memory).
 // - Shared rows are padded by 16 bytes (pitch (DP + 8) * 2 with DP a
 //   multiple of 16, an odd number of 16-byte units), so the eight row
 //   addresses of each ldmatrix phase fall in distinct bank groups.
@@ -34,12 +40,13 @@
 //   only; the padding columns are zeroed once and never copied into.
 // - d = 512 (the VAE's single head): 16 rows x 512 fp32 outputs would take
 //   256 registers a thread. The output columns are split over CW = 4 warps
-//   that share a 16-row slab; those warps also split the keys (forward) or
-//   queries (dk/dv) of the score product, so no warp idles in it. The
+//   that share a 16-row slab; those warps also split the keys (forward, dq)
+//   or queries (dk/dv) of the score product, so no warp idles in it. The
 //   forward exchanges row maxima and sums through a small shared array,
-//   and P (or P^T and dS^T) is staged once per tile as bf16 in shared
-//   memory for the second product. With CW = 1 (d <= 128) nothing is
-//   exchanged or staged.
+//   and P (or dS, or P^T and dS^T) is staged once per tile as bf16 in
+//   shared memory for the second product; dq exchanges nothing else, since
+//   lse and delta are given. With CW = 1 (d <= 128) nothing is exchanged
+//   or staged.
 //
 // Layout: (batch, heads, seq, head_dim) inputs with any batch/head/seq
 // strides (unit head_dim stride, 16-byte aligned rows); outputs contiguous.
@@ -577,6 +584,133 @@ __global__ void __launch_bounds__(RW* CW * 32, (DkvTile<DP, RW, CW, BQ>::MIN_BLO
   write_rows<ON>(dv, dv_acc, krow0, cw * ON, D, 1.0f, 1.0f, lane);
 }
 
+// -- backward: dq ----------------------------------------------------------------
+
+// RW x CW warps: warp (rw, cw) owns Q rows 16 rw.., keys SN cw.. of each
+// score tile and dQ columns ON cw..
+template <int DP, int RW, int CW, int BK>
+struct DqTile {
+  static constexpr int NT = RW * CW * 32, BQ = 16 * RW;
+  static constexpr int SN = BK / CW, ON = DP / CW;
+  static constexpr int LD = DP + 8, LDS = BK + 8;
+  // at d <= 48 the UNet's 4096-row site has 256 blocks of 128 rows:
+  // asking for 2 resident blocks of 256 threads a SM (128 registers a
+  // thread) runs them in one wave
+  static constexpr int MIN_BLOCKS = DP <= 48 ? 512 / NT : 1;
+  static_assert(DP % 16 == 0 && BK % 16 == 0 && SN % 8 == 0 && ON % 16 == 0, "bad tile");
+  // shared memory in bytes: Q, dO; [stage][K, V] tiles; dS (bf16) when
+  // CW > 1
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = q + size_t(BQ) * LD * 2;
+  static constexpr size_t kv = dout + size_t(BQ) * LD * 2;
+  static constexpr size_t ds = kv + size_t(4) * BK * LD * 2;
+  static constexpr size_t total = ds + (CW > 1 ? size_t(BQ) * LDS * 2 : 0);
+};
+
+template <int DP, int RW, int CW, int BK>
+__global__ void __launch_bounds__(RW* CW * 32, (DqTile<DP, RW, CW, BK>::MIN_BLOCKS))
+    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int H, int Sq, int Sk, int D, Strides sq, Strides sk,
+              Strides sv, Strides sdo, float scale) {
+  using T = DqTile<DP, RW, CW, BK>;
+  constexpr int LD = T::LD, BQ = T::BQ, SN = T::SN, ON = T::ON;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem + T::q);
+  bf16* sDO = reinterpret_cast<bf16*>(smem + T::dout);
+  bf16* sKV = reinterpret_cast<bf16*>(smem + T::kv);
+  bf16* sDS = reinterpret_cast<bf16*>(smem + T::ds);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % RW, cw = warp / RW;
+  const int g = lane >> 2;
+  const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const bf16* kb = k + bb * sk.b + hh * sk.h;
+  const bf16* vb = v + bb * sv.b + hh * sv.h;
+  const long long row0 = ((long long)bb * H + hh) * Sq + (long long)qt * BQ + rw * 16;
+  const int nk = Sk / BK;
+
+  auto copy_kv = [&](int stage, int kt) {
+    bf16* dst = sKV + stage * 2 * BK * LD;
+    copy_rows<BK, LD, T::NT>(dst, kb + (long long)kt * BK * sk.s, sk.s, D);
+    copy_rows<BK, LD, T::NT>(dst + BK * LD, vb + (long long)kt * BK * sv.s, sv.s, D);
+  };
+
+  zero_padding<2 * BQ, LD, DP, T::NT>(sQ, D);  // sQ and sDO are contiguous
+  zero_padding<4 * BK, LD, DP, T::NT>(sKV, D);
+  copy_rows<BQ, LD, T::NT>(sQ, q + bb * sq.b + hh * sq.h + (long long)qt * BQ * sq.s, sq.s,
+                           D);
+  copy_rows<BQ, LD, T::NT>(sDO, dout + bb * sdo.b + hh * sdo.h + (long long)qt * BQ * sdo.s,
+                           sdo.s, D);
+  copy_kv(0, 0);
+  cp_async_commit();
+
+  // lse (log2 units) and delta of this lane's rows g and g + 8: constant
+  // along a score row, so read once into registers
+  const float lse2[2] = {lse[row0 + g] * kLog2e, lse[row0 + g + 8] * kLog2e};
+  const float dlt[2] = {delta[row0 + g], delta[row0 + g + 8]};
+  const float sl2 = scale * kLog2e;
+  float acc[ON / 8][4];
+  zero_acc(acc);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int stage = kt & 1;
+    if (kt + 1 < nk) copy_kv(stage ^ 1, kt + 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    const bf16* sK = sKV + stage * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+
+    // S = Q K^T and dP = dO V^T for rows 16 rw.., keys SN cw..
+    float s[SN / 8][4], dp[SN / 8][4];
+    zero_acc(s);
+    zero_acc(dp);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t a[4];
+      load_a<LD>(a, sQ, rw * 16, kk * 16, lane);
+      mma_abt<SN, LD>(s, a, sK, cw * SN, kk * 16, lane);
+      load_a<LD>(a, sDO, rw * 16, kk * 16, lane);
+      mma_abt<SN, LD>(dp, a, sV, cw * SN, kk * 16, lane);
+    }
+
+    // P = exp(scale S - lse), dS = P (dP - delta) scale, on rows g
+    // (e = 0, 1) and g + 8 (e = 2, 3); dS overwrites dP
+#pragma unroll
+    for (int j = 0; j < SN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[j][e], sl2, -lse2[e >> 1]));
+        dp[j][e] = p * (dp[j][e] - dlt[e >> 1]) * scale;
+      }
+    }
+
+    // dQ += dS K, dS in bf16 as the A operand, K read transposed
+    if constexpr (CW == 1) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        acc_to_a(a, dp, kk);
+        mma_ab<ON, LD>(acc, a, sK, kk * 16, 0, lane);
+      }
+    } else {
+      store_acc<SN, T::LDS>(sDS, dp, rw * 16, cw * SN, lane);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        load_a<T::LDS>(a, sDS, rw * 16, kk * 16, lane);
+        mma_ab<ON, LD>(acc, a, sK, kk * 16, cw * ON, lane);
+      }
+    }
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+
+  write_rows<ON>(dq, acc, row0, cw * ON, D, 1.0f, 1.0f, lane);
+}
+
 // -- launchers ------------------------------------------------------------------
 
 template <typename Kernel>
@@ -619,6 +753,23 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int DP, int RW, int CW, int BK>
+cudaError_t launch_dq(const Args& a) {
+  using T = DqTile<DP, RW, CW, BK>;
+  static_assert(T::total <= kMaxSmem, "shared memory above the 227 KB limit");
+  if (a.block_q != T::BQ || a.block_k != BK) return cudaErrorInvalidValue;
+  auto kernel = dq_kernel<DP, RW, CW, BK>;
+  cudaError_t err = prepare(kernel, T::total);
+  if (err != cudaSuccess) return err;
+  if (a.info) return describe(kernel, T::NT, T::total, a.info);
+  kernel<<<dim3(a.Sq / T::BQ, a.H, a.B), T::NT, T::total, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.H, a.Sq, a.Sk, a.D, a.sq, a.sk, a.sv, a.sdo, a.scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Tiles per padded head_dim; (block_q, block_k) must be the pair that
@@ -630,6 +781,9 @@ cudaError_t launch_dkv(const Args& a) {
 //   dk/dv:   d <= 80: 4 warps x 16 keys, 64-query tiles        (64, 64)
 //            d <= 128: 4 warps x 16 keys, 32-query tiles       (32, 64)
 //            d <= 512: 2 x 4 warps, 32 keys, 32-query tiles    (32, 32)
+//   dq:      d <= 48: 8 warps x 16 Q rows, 64-key tiles        (128, 64)
+//            d <= 128: 4 warps x 16 Q rows, 64-key tiles       (64, 64)
+//            d <= 512: 2 x 4 warps, 32 Q rows, 32-key tiles    (32, 32)
 cudaError_t fwd_bf16(const Args& a) {
   if (a.D <= 48) return launch_fwd<48, 8, 1, 64>(a);
   if (a.D <= 80) return launch_fwd<80, 4, 1, 64>(a);
@@ -643,6 +797,14 @@ cudaError_t dkv_bf16(const Args& a) {
   if (a.D <= 80) return launch_dkv<80, 4, 1, 64>(a);
   if (a.D <= 128) return launch_dkv<128, 4, 1, 32>(a);
   if (a.D <= 512) return launch_dkv<512, 2, 4, 32>(a);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dq_bf16(const Args& a) {
+  if (a.D <= 48) return launch_dq<48, 8, 1, 64>(a);
+  if (a.D <= 80) return launch_dq<80, 4, 1, 64>(a);
+  if (a.D <= 128) return launch_dq<128, 4, 1, 64>(a);
+  if (a.D <= 512) return launch_dq<512, 2, 4, 32>(a);
   return cudaErrorInvalidValue;
 }
 

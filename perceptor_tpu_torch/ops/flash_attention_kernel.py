@@ -8,10 +8,11 @@ Counterpart of perceptor_tpu/ops/flash_attention_kernel.py (Pallas TPU):
     flash_dkv      <- _backward / _bwd_dkv_kernel
 
 Layout (batch, heads, seq, head_dim). The kernels live in `csrc/`:
-`flash_mma.cu` holds the bf16 forward and dk/dv (mma.sync with S, P and the
-accumulators in registers), `flash_attention.cu` the C interface, the dq
-kernel and the fp32 kernels. Every source there is compiled by nvcc for
-sm_90a into one library in `build/` at first use and loaded with ctypes.
+`flash_mma.cu` holds the three bf16 kernels (mma.sync with the scores,
+their gradients and the accumulators in registers), `flash_attention.cu`
+the C interface and the fp32 kernels. Every source there is compiled by
+nvcc for sm_90a into one library in `build/` at first use and loaded with
+ctypes.
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
 `LAUNCHES`. `_TILES` is the one table of tile sizes: each launch passes its
@@ -119,13 +120,13 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> Path:
-    """Compile every source under csrc/ for sm_90a (one nvcc per .cu file,
-    all started together) and link them into one shared library in build/,
-    once per version of the sources and flags; return its path. The
-    compilers' reports (ptxas registers and spills per kernel) are kept
-    beside it as `<library>.ptxas.txt`."""
-    files = sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def build_library(csrc: Path = _CSRC) -> Path:
+    """Compile every source under `csrc` (the package's csrc/ by default)
+    for sm_90a (one nvcc per .cu file, all started together) and link them
+    into one shared library in build/, once per version of the sources and
+    flags; return its path. The compilers' reports (ptxas registers and
+    spills per kernel) are kept beside it as `<library>.ptxas.txt`."""
+    files = sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in files:
         digest.update(f.name.encode() + b"\0" + f.read_bytes())
@@ -169,16 +170,22 @@ def build_library() -> Path:
     return out
 
 
+def load_library(path: Path) -> ctypes.CDLL:
+    """A library that `build_library` built, with the C entry points'
+    argument types set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            for name, argtypes in _ARGTYPES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load_library(build_library())
     return _lib
 
 
@@ -234,7 +241,7 @@ def _raise_on_error(name: str, err: int):
 # dispatch returns an error for a pair it has not instantiated.
 _TILES = {
     (torch.bfloat16, "fwd"): ((48, (128, 64)), (128, (64, 64)), (512, (32, 32))),
-    (torch.bfloat16, "dq"): ((128, (64, 64)), (512, (16, 32))),
+    (torch.bfloat16, "dq"): ((48, (128, 64)), (128, (64, 64)), (512, (32, 32))),
     (torch.bfloat16, "dkv"): ((80, (64, 64)), (128, (32, 64)), (512, (32, 32))),
     (torch.float32, "fwd"): ((128, (32, 32)), (512, (16, 32))),
     (torch.float32, "dq"): ((128, (32, 32)), (512, (16, 16))),

@@ -7,7 +7,10 @@ chip_smoke.py). Inputs come from numpy with a seed. Tolerances are the fp32
 ones of tests/test_flash_attention.py: atol 2e-5 forward, 3e-5 gradients.
 """
 
+import importlib.util
+import re
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -45,9 +48,10 @@ def test_plain_forward_and_lse_match_pallas(d):
     np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse)[..., 0], atol=FWD_ATOL)
 
 
+@pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("d", [40, 80, 512])
-def test_plain_dq_dkv_match_pallas_backward(d):
-    q, k, v, do = _inputs(d, seed=1)
+def test_plain_dq_dkv_match_pallas_backward(d, b):
+    q, k, v, do = _inputs(d, seed=1, b=b)
     scale = 1.0 / np.sqrt(d)
     jq, jk, jv, jdo = (jfa._pad_head_dim(jnp.asarray(x))[0] for x in (q, k, v, do))
     j_out, j_lse = jfa._forward(jq, jk, jv, scale, BLOCK, BLOCK, True)
@@ -149,3 +153,36 @@ def test_route_shapes_fit_every_kernel_tile():
                     )
     with pytest.raises(ValueError):
         tfa._kernel_blocks(tfa.MAX_HEAD_DIM + 8, "fwd", torch.bfloat16)
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
+def test_chip_smoke_names_each_kernel_source_and_pallas_kernel(name):
+    """chip_smoke.py's kernel table names, for each kernel, a source that
+    defines its __global__ kernel and the line of the Pallas kernel it
+    replaces; `_TILES` has a bf16 and an fp32 row for it up to MAX_HEAD_DIM."""
+    smoke = _chip_smoke()
+    kernel = name.removeprefix("flash_")
+    source = (REPO / smoke.SOURCES[name]).read_text()
+    assert re.search(rf"__global__\b[^;{{}}]*?\b{kernel}_kernel\s*\(", source), (
+        f"{smoke.SOURCES[name]} defines no __global__ {kernel}_kernel"
+    )
+    path, line = smoke.REPLACES[name].split(":")
+    pallas = (REPO / path).read_text()
+    pallas_name = {"fwd": "_fwd_kernel", "dq": "_bwd_dq_kernel", "dkv": "_bwd_dkv_kernel"}[kernel]
+    assert pallas.splitlines()[int(line) - 1].startswith(f"def {pallas_name}(")
+    # the kernel body handed to a pallas_call (directly, or bound first)
+    assert re.search(rf"functools\.partial\(\s*{pallas_name}\b", pallas)
+    assert "pl.pallas_call(" in pallas
+    for dtype in tfa.DTYPES:
+        rows = tfa._TILES[(dtype, kernel)]
+        assert rows[-1][0] == tfa.MAX_HEAD_DIM
