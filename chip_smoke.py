@@ -3,34 +3,51 @@
 
     python3 chip_smoke.py
 
-Builds the flash-attention kernels from csrc/ with nvcc, then runs five
+Builds the flash-attention kernels from csrc/ with nvcc, then runs these
 phases, each printing one JSON line; any failure raises and the script
 exits non-zero without a result line:
 
-1. kernels      each CUDA kernel against its plain PyTorch version (fp32
-                arithmetic on the same bf16 inputs) at the three attention
-                shapes of the 512px guided step, two dq and two dk/dv
-                launches held bitwise equal there, and off the main path:
-                fp32 inputs, strided batch-2 bf16 inputs (S = 1024 and
-                768px's 2304), d = 512 at S = 1024, and K/V of a single
-                tile; then each kernel's registers, spills, shared memory
-                and resident blocks per SM;
-2. guided_step  the full-width main path (SD-1.x UNet + VAE at 512px, CLIP
-                ViT-B/32, batch 1, random weights from seed 0) for 5 steps:
-                finite latents and loss, exactly 11 launches of each kernel
-                per step, steady ms per step and peak memory;
-3. profile      one step under torch.profiler: device time by kernel and
-                the device's busy share;
-4. route_parity the UNet forward and its latent gradient, and the VAE
-                decode, through the kernels against the plain attention
-                route (and both against an fp32 copy), same weights and
-                inputs, bf16;
-5. timings      each kernel, its plain version and PyTorch's
-                scaled_dot_product_attention at each site, beside the
-                card's bound.
+1. kernels        each CUDA kernel against its plain PyTorch version (fp32
+                  arithmetic on the same bf16 inputs) at the three attention
+                  shapes of the 512px guided step, two dq and two dk/dv
+                  launches held bitwise equal there; at the CFG sampling
+                  step's batch-2 sites (S = 4096 and 1024), strided as the
+                  UNet passes them; and off the main path: fp32 inputs,
+                  strided batch-2 bf16 inputs (S = 1024 and 768px's 2304),
+                  d = 512 at S = 1024, and K/V of a single tile; then each
+                  kernel's registers, spills, shared memory and resident
+                  blocks per SM;
+2. guided_step    the full-width guided step (SD-1.x UNet + VAE at 512px,
+                  CLIP ViT-B/32, batch 1, random weights from seed 0) for 5
+                  steps: finite latents and loss, exactly 11 launches of each
+                  kernel per step, steady ms per step and peak memory (from
+                  an emptied allocator cache);
+3. profile        one guided step under torch.profiler: device time by
+                  kernel and the device's busy share, against the profiled
+                  step and against the same step timed unprofiled;
+4. route_parity   the UNet forward and its latent gradient, a batch-2 CFG
+                  UNet evaluation, and the VAE decode, through the kernels
+                  against the plain attention route (and both against an
+                  fp32 copy), same weights and inputs, bf16;
+5. sample         `StableDiffusion(MODEL).sample` at 512px, batch 1, CFG 7:
+                  a 20-step DDIM, a 10-step DPM-Solver++(2M) and an
+                  img2img/RePaint run from the first image; launches
+                  asserted (10 per batched UNet evaluation, one per VAE
+                  decode or encode), finite images, seconds per image, ms
+                  per sampling step, text-encode and decode ms, peak memory;
+6. sample_profile one CFG sampling step under torch.profiler;
+7. guided_sample  `engine.guided_sample` with CFG for 4 steps, the guided
+                  step's CLIP loss: 21 launches of each kernel a step, finite
+                  latents and losses, ms per step and peak memory;
+8. timings        each kernel, its plain version and PyTorch's
+                  scaled_dot_product_attention at each site (and the
+                  forward at the batch-2 sites), beside the card's bound.
 
-Then the kernel table as one JSON line and, last, the device line. Exits
-non-zero with no result when CUDA is not available.
+Each phase measures its launches per step and holds them against the one
+table PER_STEP. Then the kernel table as one JSON line (launches of every
+main-path run and measured launches per step, by entry point) and, last,
+the device line. Exits non-zero with no result when
+CUDA is not available.
 """
 
 from __future__ import annotations
@@ -48,6 +65,42 @@ SITES = (
     ("unet_level1_attn1", 1, 8, 1024, 80, 5),
     ("vae_mid_attn", 1, 1, 4096, 512, 1),
 )
+# the forward's sites in a CFG sampling step: the uncond/cond pair batched,
+# (site, batch, heads, seq, head_dim, launches per sampling step)
+CFG_SITES = (
+    ("unet_level0_attn1_cfg", 2, 8, 4096, 40, 5),
+    ("unet_level1_attn1_cfg", 2, 8, 1024, 80, 5),
+)
+# The one table of expected launches: each kernel's launches per step of
+# each path, by entry point. The guided step is one UNet evaluation (5
+# self-attentions at level 0, S = 4096, and 5 at level 1, S = 1024) and the
+# VAE decode, forward and backward; `sample` is counted per batched CFG UNet
+# evaluation, forward only; `guided_sample` with CFG is two UNet
+# evaluations and the VAE decode, forward and backward. Each phase measures
+# its counts and holds them against this table.
+PER_STEP = {
+    "guided_step": {"flash_fwd": 11, "flash_dq": 11, "flash_dkv": 11},
+    "sample": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
+    "guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
+}
+# launches of one no-grad VAE decode or encode (the mid-block attention)
+PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+# the B = 1 sites' launches per CFG-guided step: the UNet's sites twice
+CFG_GUIDED_SITE_LAUNCHES = {
+    site: n * (2 if site.startswith("unet") else 1) for site, *_, n in SITES
+}
+MODEL = "runwayml/stable-diffusion-v1-5"
+IMAGE_SIZE = 512
+PROMPT = "a photograph of an astronaut riding a horse on the moon"
+CFG_SCALE = 7.0
+# text-to-image runs of `StableDiffusion.sample` at 512px, batch 1, in this
+# order; img2img starts from the first run's image
+SAMPLE_RUNS = (
+    ("ddim", {"n_steps": 20}),
+    ("dpm++", {"n_steps": 10, "method": "dpm++"}),
+    ("img2img", {"n_steps": 5, "from_index": 600, "eta": 0.5, "n_resample": 1}),
+)
+GUIDED_SAMPLE_STEPS = 4
 # bf16 kernels vs fp32 arithmetic: bf16 keeps 8 mantissa bits, so rounding
 # the output alone costs ~2e-3 of its magnitude, and P / dS are rounded to
 # bf16 before their products; 2e-2 of the reference's largest magnitude
@@ -194,33 +247,54 @@ def phase_kernels(fa) -> dict:
         record["dq_bitwise_repeatable"] = True
         record["dkv_bitwise_repeatable"] = True
         sites.append(record)
+    # the CFG sampling step's batch-2 sites, strided as the UNet passes them
+    cfg_sites = []
+    for i, (site, b, h, s, d, _) in enumerate(CFG_SITES):
+        for record in check_strided(fa, ("bfloat16", b, h, s, s, d), seed=80 + i):
+            kernel = OUT_KERNEL[record["out"]]
+            errors[kernel] = max(errors[kernel], record["max_abs_err"])
+            cfg_sites.append({"site": site, **record})
     extra = []
-    for i, (dtype, b, h, sq, sk, d) in enumerate(EXTRA_CASES):
-        gen = torch.Generator(device="cuda").manual_seed(50 + i)
-        # (B, S, H * D) projections viewed as (B, H, S, D): strided inputs
-        q, k, v, do = (
-            torch.randn((b, s, h * d), generator=gen, device="cuda")
-            .to(getattr(torch, dtype)).view(b, s, h, d).transpose(1, 2)
-            for s in (sq, sk, sk, sq)
-        )
-        scale = 1.0 / math.sqrt(d)
-        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-        o_ref, lse_ref = fa.flash_forward_plain(qf, kf, vf, scale)
-        delta = (o_ref.to(q.dtype).float() * dof).sum(-1)
-        refs = [o_ref, fa.flash_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale),
-                *fa.flash_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale)]
-        outs = [fa.flash_forward(q, k, v, scale)[0], fa.flash_dq(q, k, v, do, lse_ref, delta, scale),
-                *fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)]
-        torch.cuda.synchronize()
-        rtol = FP32_RTOL if dtype == "float32" else KERNEL_RTOL
-        for out_name, got, ref in zip(("o", "dq", "dk", "dv"), outs, refs):
-            err, tol = float((got.float() - ref).abs().max()), rtol * float(ref.abs().max())
-            case = [dtype, b, h, sq, sk, d]
-            if not err <= tol:
-                raise AssertionError(f"{out_name} at {case}: max |err| {err} > {tol}")
-            extra.append({"case": case, "out": out_name, "max_abs_err": err, "tol": tol})
-    emit({"phase": "kernels", "ok": True, "sites": sites, "off_path": extra})
+    for i, case in enumerate(EXTRA_CASES):
+        extra.extend(check_strided(fa, case, seed=50 + i))
+    emit({"phase": "kernels", "ok": True, "sites": sites, "cfg_sites": cfg_sites,
+          "off_path": extra})
     return errors
+
+
+OUT_KERNEL = {"o": "flash_fwd", "dq": "flash_dq", "dk": "flash_dkv", "dv": "flash_dkv"}
+
+
+def check_strided(fa, case, seed) -> list:
+    """All three kernels against their plain versions on (B, S, H * D)
+    projections viewed as (B, H, S, D), the UNet's strided layout; raises on
+    an error above the tolerance."""
+    import torch
+
+    dtype, b, h, sq, sk, d = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (
+        torch.randn((b, s, h * d), generator=gen, device="cuda")
+        .to(getattr(torch, dtype)).view(b, s, h, d).transpose(1, 2)
+        for s in (sq, sk, sk, sq)
+    )
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    o_ref, lse_ref = fa.flash_forward_plain(qf, kf, vf, scale)
+    delta = (o_ref.to(q.dtype).float() * dof).sum(-1)
+    refs = [o_ref, fa.flash_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale),
+            *fa.flash_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale)]
+    outs = [fa.flash_forward(q, k, v, scale)[0], fa.flash_dq(q, k, v, do, lse_ref, delta, scale),
+            *fa.flash_dkv(q, k, v, do, lse_ref, delta, scale)]
+    torch.cuda.synchronize()
+    rtol = FP32_RTOL if dtype == "float32" else KERNEL_RTOL
+    records = []
+    for out_name, got, ref in zip(("o", "dq", "dk", "dv"), outs, refs):
+        err, tol = float((got.float() - ref).abs().max()), rtol * float(ref.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{out_name} at {list(case)}: max |err| {err} > {tol}")
+        records.append({"case": list(case), "out": out_name, "max_abs_err": err, "tol": tol})
+    return records
 
 
 def phase_kernel_info(fa, library) -> None:
@@ -254,13 +328,26 @@ def phase_kernel_info(fa, library) -> None:
     emit({"phase": "kernel_info", "ok": True, "runtime": info, "ptxas": ptxas})
 
 
-def phase_guided_step(fa, step) -> dict:
-    """Five full-width guided steps through the kernels."""
+def per_step(launches: dict, steps: int) -> dict:
+    """Measured launches of each kernel per step."""
+    return {name: n / steps for name, n in launches.items()}
+
+
+def check_per_step(path: str, measured: dict) -> None:
+    if measured != PER_STEP[path]:
+        raise AssertionError(f"{path}: kernel launches per step {measured}, want {PER_STEP[path]}")
+
+
+def phase_guided_step(fa, step):
+    """Five full-width guided steps through the kernels: (launches, launches
+    per step)."""
     import torch
 
     latents, context = step.initial_inputs()
     step.guided_denoise_step(latents, context)  # warm-up: cuDNN/cuBLAS set-up
     torch.cuda.synchronize()
+    # the peak is the step's own: no blocks cached by earlier phases
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(STEPS + 1)]
@@ -274,9 +361,8 @@ def phase_guided_step(fa, step) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
-    expected = {name: 11 * STEPS for name in REPLACES}
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, want {expected}")
+    measured = per_step(launches, STEPS)
+    check_per_step("guided_step", measured)
     if not (torch.isfinite(latents).all() and all(torch.isfinite(x) for x in losses)):
         raise AssertionError("non-finite latents or loss")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(STEPS)]
@@ -285,9 +371,9 @@ def phase_guided_step(fa, step) -> dict:
         "latents_shape": list(latents.shape), "losses": [float(x) for x in losses],
         "step_ms": step_ms, "steady_ms_per_step": sorted(step_ms)[STEPS // 2],
         "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "launches": launches,
+        "launches": launches, "launches_per_step": measured,
     })
-    return launches
+    return launches, measured
 
 
 def _set_route(module, use_flash) -> None:
@@ -310,6 +396,8 @@ def phase_route_parity(step) -> None:
     latents, context = step.initial_inputs()
     gen = torch.Generator(device="cuda").manual_seed(7)
     probe = torch.randn(latents.shape, generator=gen, device="cuda")
+    # a CFG evaluation: the latents twice, under two contexts (batch 2)
+    context2 = step.initial_inputs(batch=2)[1]
 
     def unet_out_grad(unet, use_flash):
         _set_route(unet, use_flash)
@@ -319,21 +407,25 @@ def phase_route_parity(step) -> None:
             (grad,) = torch.autograd.grad((out * probe).sum(), x)
         return out.detach(), grad
 
+    def unet_cfg_out(unet, use_flash):
+        _set_route(unet, use_flash)
+        with torch.no_grad():
+            return (unet(torch.cat([latents, latents]), step.from_idx.float().expand(2), context2),)
+
     def vae_decode(vae, use_flash):
         _set_route(vae, use_flash)
         with torch.no_grad():
-            return vae.decode(latents)
+            return (vae.decode(latents),)
 
     results = {}
-    for name, bf16_model, run in (
-        ("unet", step.unet, unet_out_grad), ("vae_decode", step.vae, vae_decode),
+    for name, bf16_model, run, outputs in (
+        ("unet", step.unet, unet_out_grad, ("out", "latent_grad")),
+        ("unet_cfg", step.unet, unet_cfg_out, ("out",)),
+        ("vae_decode", step.vae, vae_decode, ("images",)),
     ):
         kernel, plain = run(bf16_model, None), run(bf16_model, False)
         reference = run(copy.deepcopy(bf16_model).float(), False)
         _set_route(bf16_model, None)
-        outputs = ("out", "latent_grad") if name == "unet" else ("images",)
-        if name == "vae_decode":
-            kernel, plain, reference = (kernel,), (plain,), (reference,)
         for i, out_name in enumerate(outputs):
             tol = ROUTE_GRAD_RTOL if out_name == "latent_grad" else ROUTE_FWD_RTOL
             rec = {
@@ -355,14 +447,34 @@ def phase_route_parity(step) -> None:
 def phase_profile(step) -> dict:
     """One guided step under torch.profiler: device time by kernel, and the
     step's device busy share."""
+    latents, context = step.initial_inputs()
+    record = {"phase": "profile", "ok": True,
+              **profile_record(lambda: step.guided_denoise_step(latents, context))}
+    emit(record)
+    return record
+
+
+def profile_record(fn) -> dict:
+    """`fn()` once under torch.profiler: its wall ms, device ms, busy share,
+    flash-kernel ms, kernel launches and the 15 kernels of most device time;
+    and `fn()` unprofiled (CUDA events, median of 3), against which the busy
+    share is also given: the profiler's cost per launch stretches the
+    profiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    latents, context = step.initial_inputs()
-    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    unprofiled = []
+    for _ in range(3):
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        unprofiled.append(start.elapsed_time(end))
+    unprofiled_ms = sorted(unprofiled)[1]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step.guided_denoise_step(latents, context)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [
@@ -376,15 +488,177 @@ def phase_profile(step) -> dict:
     flash_us = sum(
         e.self_device_time_total for e in kernels if "flash_" in e.key or "flash::" in e.key
     )
-    record = {
-        "phase": "profile", "ok": True, "step_wall_ms": wall_ms,
+    return {
+        "step_wall_ms": wall_ms,
         "device_ms": total_us / 1e3, "device_busy_share": total_us / 1e3 / wall_ms,
+        "unprofiled_ms": unprofiled_ms,
+        "device_busy_share_unprofiled": total_us / 1e3 / unprofiled_ms,
         "flash_kernels_ms": flash_us / 1e3, "kernel_launches": sum(e.count for e in kernels),
         "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
                 for e in top],
     }
+
+
+class PartTimer:
+    """Shadows methods of `obj` with wrappers that record CUDA events and
+    the flash launches around each call; `remove()` restores them."""
+
+    def __init__(self, fa, obj, names):
+        self.fa, self.obj, self.calls = fa, obj, {name: [] for name in names}
+        for name in names:
+            setattr(obj, name, self._wrap(name, getattr(obj, name)))
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            before = dict(self.fa.LAUNCHES)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            launched = {k: self.fa.LAUNCHES[k] - before[k] for k in before}
+            self.calls[name].append((start, end, launched))
+            return out
+
+        return timed
+
+    def remove(self) -> None:
+        for name in self.calls:
+            delattr(self.obj, name)
+
+    def ms(self, name) -> float:
+        return sum(start.elapsed_time(end) for start, end, _ in self.calls[name])
+
+    def launches(self, name) -> dict:
+        """Launches of each kernel over every call of `name`."""
+        return {k: sum(launched[k] for _, _, launched in self.calls[name]) for k in self.fa.LAUNCHES}
+
+
+def phase_sample(fa, sd):
+    """`StableDiffusion.sample` at 512px, batch 1, CFG 7: a 20-step DDIM, a
+    10-step DPM-Solver++(2M) and an img2img/RePaint run from the first
+    image. Per run: the schedule's k, flash launches (the loop's per UNet
+    evaluation, the decode's and encode's, each asserted), the image
+    (asserted finite, (1, 3, 512, 512)), seconds per image, the text
+    encoding, the UNet loop and the decode apart, and peak memory. Returns
+    (launches, launches per UNet evaluation)."""
+    import torch
+
+    def generator(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    sd.sample([PROMPT], n_steps=2, size=size, generator=generator(1))  # warm-up
+    torch.cuda.synchronize()
+    totals = {name: 0 for name in REPLACES}
+    runs, first_image = [], None
+    for name, options in SAMPLE_RUNS:
+        if name == "img2img":
+            options = {**options, "init_images": first_image}
+        k = len(sd.schedule_indices(options["n_steps"], from_index=options.get("from_index", 999)))
+        evals = k * (1 + options.get("n_resample", 0))
+        timer = PartTimer(fa, sd, ("conditioning", "sample_loop", "decode", "encode"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        images = sd.sample([PROMPT], guidance_scale=CFG_SCALE, size=size, generator=generator(0),
+                           **options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        timer.remove()
+        parts = {part: timer.launches(part) for part in timer.calls}
+        measured = per_step(parts["sample_loop"], evals)
+        check_per_step("sample", measured)
+        vae_calls = {"decode": 1, "encode": int("init_images" in options)}
+        for part, calls in vae_calls.items():
+            if parts[part] != {k: n * calls for k, n in PER_VAE_CALL.items()}:
+                raise AssertionError(f"sample {name}: {part} launched {parts[part]}")
+        # text encoding (masked, S = 77) launches none
+        if any(parts["conditioning"].values()):
+            raise AssertionError(f"sample {name}: the text encoder launched a flash kernel")
+        if launches != {k: sum(p[k] for p in parts.values()) for k in launches}:
+            raise AssertionError(f"sample {name}: launches {launches} outside {parts}")
+        if images.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not torch.isfinite(images).all():
+            raise AssertionError(f"sample {name}: images {tuple(images.shape)} not finite")
+        loop_ms = timer.ms("sample_loop")
+        runs.append({
+            "run": name, "options": {k: v for k, v in options.items() if k != "init_images"},
+            "k": k, "unet_evals": evals, "launches": launches,
+            "launches_per_unet_eval": measured,
+            "images_shape": list(images.shape), "image_mean": float(images.mean()),
+            "image_std": float(images.std()), "s_per_image": wall,
+            "ms_per_sampling_step": loop_ms / k, "ms_per_unet_eval": loop_ms / evals,
+            "loop_ms": loop_ms, "text_encode_ms": timer.ms("conditioning"),
+            "decode_ms": timer.ms("decode"), "encode_ms": timer.ms("encode"),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        })
+        for kernel in totals:
+            totals[kernel] += launches[kernel]
+        if first_image is None:
+            first_image = images
+    emit({"phase": "sample", "ok": True, "model": MODEL, "guidance_scale": CFG_SCALE,
+          "runs": runs})
+    return totals, measured
+
+
+def phase_sample_profile(sd) -> dict:
+    """One CFG sampling step (the batched UNet evaluation and the DDIM
+    update) under torch.profiler."""
+    import torch
+
+    uncond, cond = sd.conditioning([""]), sd.conditioning([PROMPT])
+    latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE), torch.Generator("cuda").manual_seed(2))
+    pairs = sd.schedule_indices(20)[:1]
+    sd.sample_loop(latents, pairs, uncond, cond, CFG_SCALE)
+    record = {"phase": "sample_profile", "ok": True,
+              **profile_record(lambda: sd.sample_loop(latents, pairs, uncond, cond, CFG_SCALE))}
     emit(record)
     return record
+
+
+def phase_guided_sample(fa, sd, step):
+    """`engine.guided_sample` at 512px with CFG 7 and guidance scale 0.5,
+    the loss the guided step's CLIP ViT-B/32 spherical distance to its fixed
+    target, for GUIDED_SAMPLE_STEPS steps: finite latents and losses, 21
+    launches of each kernel a step, ms per step and peak memory. Returns
+    (launches, launches per step)."""
+    import torch
+
+    from perceptor_tpu_torch.engine import guided_sample
+
+    uncond, cond = sd.conditioning([""]), sd.conditioning([PROMPT])
+    latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE), torch.Generator("cuda").manual_seed(3))
+    pairs = sd.schedule_indices(GUIDED_SAMPLE_STEPS)
+    options = dict(conditioning=cond, uncond_conditioning=uncond, cfg_scale=CFG_SCALE,
+                   guidance_scale=0.5)
+    guided_sample(sd, [step.clip_loss], latents, pairs[:1], **options)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out, losses = guided_sample(sd, [step.clip_loss], latents, pairs, **options)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    k = len(pairs)
+    measured = per_step(launches, k)
+    check_per_step("guided_sample", measured)
+    if not (torch.isfinite(out).all() and torch.isfinite(losses).all()):
+        raise AssertionError("guided_sample: non-finite latents or losses")
+    emit({
+        "phase": "guided_sample", "ok": True, "steps": k, "pairs": pairs.tolist(),
+        "guidance_scale": 0.5, "cfg_scale": CFG_SCALE, "losses": losses.tolist(),
+        "latents_shape": list(out.shape), "ms_per_step": start.elapsed_time(end) / k,
+        "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": measured,
+    })
+    return launches, measured
 
 
 def phase_timings(fa, peak_flops, peak_bw) -> list:
@@ -418,17 +692,35 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
             flops, nbytes = site_work(name, b, h, s, d)
             t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
             rows.append({
-                "kernel": name, "site": site, "shape": [b, h, s, d], "per_step": count,
-                "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, reps=5),
+                "kernel": name, "site": site, "path": "guided_step", "shape": [b, h, s, d],
+                "per_step": count, "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, reps=5),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "flops": flops, "bytes": nbytes,
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
             })
+    # the forward at the CFG sampling step's batch-2 sites
+    for i, (site, b, h, s, d, count) in enumerate(CFG_SITES):
+        q, k, v, _ = site_inputs(b, h, s, d, seed=120 + i)
+        scale = 1.0 / math.sqrt(d)
+        flops, nbytes = site_work("flash_fwd", b, h, s, d)
+        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        with torch.no_grad():
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        rows.append({
+            "kernel": "flash_fwd", "site": site, "path": "sample", "shape": [b, h, s, d],
+            "per_step": count, "ms": time_ms(lambda: fa.flash_forward(q, k, v, scale)),
+            "plain_ms": time_ms(lambda: fa.flash_forward_plain(q, k, v, scale), reps=5),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "sdpa_fwd_ms": sdpa_fwd,
+        })
+
     # per guided step: the port's two backward kernels against SDPA's
     # backward (its forward plus backward, less its forward)
     def weighted(names, key):
-        return sum(r[key] * r["per_step"] for r in rows if r["kernel"] in names)
+        return sum(r[key] * r["per_step"] for r in rows
+                   if r["kernel"] in names and r["path"] == "guided_step")
 
     backward = {
         "dq_plus_dkv_ms": weighted(("flash_dq", "flash_dkv"), "ms"),
@@ -439,28 +731,38 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
     return rows
 
 
-def kernel_table(rows, launches, errors) -> list:
-    """Per kernel, the work of one guided step: site times weighted by
-    their launches per step."""
+def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
+    """Per kernel, the work of one guided step (site times weighted by their
+    launches per step), its launches in every main-path run, and its
+    measured launches and ms per step of each path."""
     table = []
     for name in REPLACES:
-        mine = [r for r in rows if r["kernel"] == name]
+        mine = [r for r in rows if r["kernel"] == name and r["path"] == "guided_step"]
 
-        def per_step(key):
-            return sum(r[key] * r["per_step"] for r in mine)
+        def weighted(key, weights=None):
+            return sum(r[key] * (weights or {}).get(r["site"], r["per_step"]) for r in mine)
 
+        sampling = [r for r in rows if r["kernel"] == name and r["path"] == "sample"]
         t_ops = sum(r["flops"] * r["per_step"] for r in mine)
         t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errors[name], "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-            "bound_ms": per_step("bound_ms"),
+            "replaces": REPLACES[name],
+            "launches": sum(path[name] for path in launches_by_path.values()),
+            "max_abs_err": errors[name], "ms": weighted("ms"), "plain_ms": weighted("plain_ms"),
+            "bound_ms": weighted("bound_ms"),
             "bound_by": "operations" if all(r["bound_by"] == "operations" for r in mine) else "bytes",
             # one PyTorch call computes the forward alone (SDPA); none computes
             # dq or dk/dv alone (SDPA's backward returns all three)
-            "library_ms": per_step("sdpa_fwd_ms") if name == "flash_fwd" else None,
+            "library_ms": weighted("sdpa_fwd_ms") if name == "flash_fwd" else None,
             "flops_per_step": t_ops, "bytes_per_step": t_bytes,
+            "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
+            "launches_per_step": {path: counts[name] for path, counts in per_step_by_path.items()},
+            "ms_per_step_by_path": {
+                "guided_step": weighted("ms"),
+                "sample": sum(r["ms"] * r["per_step"] for r in sampling),
+                "guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
+            },
         })
     return table
 
@@ -472,6 +774,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from perceptor_tpu_torch import guided_step
+    from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
     from perceptor_tpu_torch.ops import flash_attention_kernel as fa
 
     smi = subprocess.run(
@@ -497,14 +800,21 @@ def main() -> int:
     t0 = time.perf_counter()
     step = guided_step.build("sd-v1-512", device="cuda", seed=0)
     emit({"phase": "model_build", "ok": True, "seconds": time.perf_counter() - t0})
-    launches = phase_guided_step(fa, step)
+    launches, measured = {}, {}
+    launches["guided_step"], measured["guided_step"] = phase_guided_step(fa, step)
     phase_profile(step)
     phase_route_parity(step)
-    del step
+    t0 = time.perf_counter()
+    sd = StableDiffusion(MODEL, device="cuda", seed=0)
+    emit({"phase": "sd_build", "ok": True, "model": MODEL, "seconds": time.perf_counter() - t0})
+    launches["sample"], measured["sample"] = phase_sample(fa, sd)
+    phase_sample_profile(sd)
+    launches["guided_sample"], measured["guided_sample"] = phase_guided_sample(fa, sd, step)
+    del step, sd
     torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
 
-    print(json.dumps({"kernels": kernel_table(rows, launches, errors)}))
+    print(json.dumps({"kernels": kernel_table(rows, launches, measured, errors)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

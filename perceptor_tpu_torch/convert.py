@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
-from perceptor_tpu_torch.models.stable_diffusion.config import UNetConfig, VAEConfig
+from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -179,10 +179,29 @@ def vae_state_dict_from_jax(params: Mapping, cfg: VAEConfig) -> StateDict:
     return sd
 
 
+def _transformer(p: Mapping, prefix: str, layers: int, sd: StateDict) -> None:
+    """Flax CLIP `Transformer` -> open_clip `resblocks.{i}`; q/k/v
+    projections are packed into `attn.in_proj_weight`/`in_proj_bias` as
+    open_clip stores them."""
+    for i in range(layers):
+        bp, block = p[f"resblocks_{i}"], f"{prefix}.resblocks.{i}"
+        _norm(bp["ln_1"], f"{block}.ln_1", sd)
+        _norm(bp["ln_2"], f"{block}.ln_2", sd)
+        attn = bp["attn"]
+        sd[f"{block}.attn.in_proj_weight"] = _t(
+            np.concatenate([np.asarray(attn[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")])
+        )
+        sd[f"{block}.attn.in_proj_bias"] = _t(
+            np.concatenate([np.asarray(attn[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")])
+        )
+        _linear(attn["out_proj"], f"{block}.attn.out_proj", sd)
+        _linear(bp["mlp"]["fc1"], f"{block}.mlp.c_fc", sd)
+        _linear(bp["mlp"]["fc2"], f"{block}.mlp.c_proj", sd)
+
+
 def clip_visual_state_dict_from_jax(visual: Mapping, cfg: CLIPConfig) -> StateDict:
     """Flax `VisionTransformer` params (`params["visual"]`) -> the port's
-    open_clip-named `visual.*` state_dict; q/k/v projections are packed into
-    `attn.in_proj_weight`/`in_proj_bias` as open_clip stores them."""
+    open_clip-named `visual.*` state_dict."""
     sd: StateDict = {}
     sd["visual.conv1.weight"] = _t(np.asarray(visual["conv1"]["kernel"]).transpose(3, 2, 0, 1))
     sd["visual.class_embedding"] = _t(visual["class_embedding"])
@@ -190,18 +209,30 @@ def clip_visual_state_dict_from_jax(visual: Mapping, cfg: CLIPConfig) -> StateDi
     sd["visual.proj"] = _t(visual["proj"])
     _norm(visual["ln_pre"], "visual.ln_pre", sd)
     _norm(visual["ln_post"], "visual.ln_post", sd)
-    for i in range(cfg.vision_layers):
-        bp, prefix = visual["transformer"][f"resblocks_{i}"], f"visual.transformer.resblocks.{i}"
-        _norm(bp["ln_1"], f"{prefix}.ln_1", sd)
-        _norm(bp["ln_2"], f"{prefix}.ln_2", sd)
-        attn = bp["attn"]
-        sd[f"{prefix}.attn.in_proj_weight"] = _t(
-            np.concatenate([np.asarray(attn[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")])
-        )
-        sd[f"{prefix}.attn.in_proj_bias"] = _t(
-            np.concatenate([np.asarray(attn[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")])
-        )
-        _linear(attn["out_proj"], f"{prefix}.attn.out_proj", sd)
-        _linear(bp["mlp"]["fc1"], f"{prefix}.mlp.c_fc", sd)
-        _linear(bp["mlp"]["fc2"], f"{prefix}.mlp.c_proj", sd)
+    _transformer(visual["transformer"], "visual.transformer", cfg.vision_layers, sd)
     return sd
+
+
+def text_encoder_state_dict_from_jax(params: Mapping, cfg: TextConfig) -> StateDict:
+    """Flax SD `CLIPTextEncoder` params -> state_dict of the port's
+    `CLIPTextEncoder` (open_clip text-tower names)."""
+    sd: StateDict = {
+        "token_embedding.weight": _t(params["token_embedding"]),
+        "positional_embedding": _t(params["positional_embedding"]),
+    }
+    _transformer(params["transformer"], "transformer", cfg.layers, sd)
+    _norm(params["ln_final"], "ln_final", sd)
+    return sd
+
+
+def stable_diffusion_state_dicts_from_jax(
+    params: Mapping, unet_cfg: UNetConfig, vae_cfg: VAEConfig, text_cfg: TextConfig
+) -> Dict[str, StateDict]:
+    """The JAX `StableDiffusion.params` tree ({"unet", "vae",
+    "text_encoder"}) -> the port's three state_dicts under the same keys, as
+    `StableDiffusion.load_state_dicts` takes them."""
+    return {
+        "unet": unet_state_dict_from_jax(params["unet"], unet_cfg),
+        "vae": vae_state_dict_from_jax(params["vae"], vae_cfg),
+        "text_encoder": text_encoder_state_dict_from_jax(params["text_encoder"], text_cfg),
+    }

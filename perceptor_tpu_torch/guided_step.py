@@ -9,9 +9,9 @@ target embedding; the gradient of that loss with respect to the latents
 both backward kernels) then drives `guided(grad, 0.5).step(to_idx)`.
 
 Weights are random, drawn from a seeded `torch.Generator` in the JAX
-bench's fill (`perceptor_tpu/core/init.init_by_shape`: normal with std
-1/sqrt(fan_in) for weights, zero biases, unit norm scales), so FLOPs and
-memory equal those of pretrained weights. Matmul/conv weights are stored in
+bench's fill (`core/init.py`: normal with std 1/sqrt(fan_in) for weights,
+zero biases, unit norm scales), so FLOPs and memory equal those of
+pretrained weights. Matmul/conv weights are stored in
 bf16 and norms in fp32.
 
 Usage::
@@ -29,9 +29,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
-from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE, cast_matmul_params_bf16
+from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE
+from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.losses.prompt_bank import _l2_normalize, spherical_distance_squared
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig, get_config
 from perceptor_tpu_torch.models.clip.model import CLIP
@@ -79,53 +79,6 @@ CONFIGS = {
     ),
     "tiny": StepConfig(sd_config.TINY_UNET, sd_config.TINY_VAE, TINY_CLIP, 16, torch.float32),
 }
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device: CUDA unless the caller asks for the CPU. A
-    CUDA device on a machine without one raises; nothing falls back."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain PyTorch path"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
-
-
-@torch.no_grad()
-def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill parameters like `init_by_shape`: weights ~ N(0, 1/fan_in), biases
-    zero, 1-D norm weights one. fan_in is the input size of a conv/linear
-    weight (torch layout), else the product of all but the last dim (the
-    flax layout of `proj` and `positional_embedding`)."""
-    for name, param in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if "bias" in leaf:
-            param.zero_()
-        elif param.ndim == 1 and leaf == "weight":
-            param.fill_(1.0)
-        else:
-            if leaf in ("weight", "in_proj_weight"):
-                fan_in = param[0].numel()
-            else:
-                fan_in = int(np.prod(param.shape[:-1])) if param.ndim > 1 else param.shape[0]
-            noise = torch.randn(
-                param.shape, generator=generator, device=param.device, dtype=torch.float32
-            )
-            param.copy_(noise / float(np.sqrt(max(fan_in, 1))))
-    return module
-
-
-def _make(cls, cfg, device, generator, dtype) -> nn.Module:
-    with torch.device("meta"):
-        module = cls(cfg)
-    module = module.to_empty(device=device)
-    init_random_(module, generator)
-    if dtype == COMPUTE_DTYPE:
-        cast_matmul_params_bf16(module)
-    return module.requires_grad_(False).eval()
 
 
 class GuidedStep:
@@ -204,12 +157,9 @@ def build(config: str = "sd-v1-512", device="cuda", seed: int = 0) -> GuidedStep
     if config not in CONFIGS:
         raise ValueError(f"unknown config {config!r}; known: {sorted(CONFIGS)}")
     device = resolve_device(device)
-    # fp32 matmuls (the resize) and convolutions run in full fp32, never TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = CONFIGS[config]
     gen = torch.Generator(device=device).manual_seed(seed)
-    unet = _make(UNet, cfg.unet, device, gen, cfg.dtype)
-    vae = _make(AutoencoderKL, cfg.vae, device, gen, cfg.dtype)
-    clip = _make(CLIP, cfg.clip, device, gen, cfg.dtype)
+    unet = random_module(UNet, cfg.unet, device, gen, cfg.dtype)
+    vae = random_module(AutoencoderKL, cfg.vae, device, gen, cfg.dtype)
+    clip = random_module(CLIP, cfg.clip, device, gen, cfg.dtype)
     return GuidedStep(cfg, unet, vae, clip, device, seed)

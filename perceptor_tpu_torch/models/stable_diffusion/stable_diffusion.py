@@ -1,0 +1,344 @@
+"""StableDiffusion wrapper: UNet + KL-VAE + CLIP text conditioning
+(counterpart of perceptor_tpu/models/stable_diffusion/stable_diffusion.py).
+
+  - DDPM scaled-linear schedule as alpha/sigma tables on the device;
+  - Karras-rho `schedule_indices` snapped to the 1000-index grid;
+  - `predictions()` -> LatentIndexedEpsPredictions (eps algebra);
+  - `encode`/`decode` through the VAE, `preview_images_fn` without it;
+  - `conditioning(texts)` through the tokenizer and the CLIP text encoder;
+  - `sample()`: text to images with classifier-free guidance (CFG), DDIM
+    (`eta` for the stochastic variant) or DPM-Solver++(2M), img2img
+    (`init_images` + `from_index`) and RePaint resampling (`n_resample`).
+
+CFG runs the uncond/cond pair as one batched UNet call (batch 2N), as the
+JAX program does. Where JAX compiles the sampler into one `lax.scan`
+program, here `sample_loop` is an eager Python loop over the schedule
+pairs. Randomness comes from an explicit `torch.Generator`.
+
+Weights are seeded random at the published widths (the tree holds no
+checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
+`load_state_dicts` takes real or converted weights
+(`convert.stable_diffusion_state_dicts_from_jax`).
+
+Not ported (ROADMAP queue A): inpainting (`Conditioning`, latent masks,
+`replace_diffused`, the 9-channel UNet), DeepCache (`cache_interval`),
+`mesh`/`rules`, `prime`, the `export_*` programs, `finetuneable_vae` and
+checkpoint discovery.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE
+from perceptor_tpu_torch.core.init import random_module, resolve_device
+from perceptor_tpu_torch.models.clip.tokenizer import SimpleTokenizer, tokenize
+from perceptor_tpu_torch.models.stable_diffusion import config as sd_config
+from perceptor_tpu_torch.models.stable_diffusion.text_encoder import CLIPTextEncoder
+from perceptor_tpu_torch.models.stable_diffusion.unet import UNet
+from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
+from perceptor_tpu_torch.ops.clamp import clamp_with_grad
+from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions
+from perceptor_tpu_torch.schedules import indexed_schedule, scaled_linear_alphas_sigmas
+
+# Published SD-1.x linear latent -> RGB preview factors (rows: the 4 latent
+# channels); an approximate, differentiable decode for preview and guidance.
+_LATENT_RGB_FACTORS = np.array(
+    [
+        [0.298, 0.207, 0.208],
+        [0.187, 0.286, 0.173],
+        [-0.158, 0.189, 0.264],
+        [-0.184, -0.271, -0.473],
+    ],
+    dtype=np.float32,
+)
+
+METHODS = ("ddim", "dpm++")
+
+
+class StableDiffusion:
+    def __init__(
+        self,
+        name: str = "runwayml/stable-diffusion-v1-5",
+        fp16: bool = True,
+        tokenizer: Optional[SimpleTokenizer] = None,
+        device="cuda",
+        seed: int = 0,
+    ):
+        """`name` is "tiny" or a key of `config.MODEL_CONFIGS`; `fp16`
+        stores matmul/conv weights in bf16 (bf16 compute); weights are
+        random from `seed`; `device` is CUDA unless the caller passes
+        "cpu"."""
+        if name == "tiny":
+            configs = (sd_config.TINY_UNET, sd_config.TINY_VAE, sd_config.TINY_TEXT)
+        elif name in sd_config.MODEL_CONFIGS:
+            configs = sd_config.MODEL_CONFIGS[name]
+        else:
+            raise ValueError(f"unknown stable diffusion name: {name}")
+        self.name = name
+        self.device = resolve_device(device)
+        self.unet_config, self.vae_config, self.text_config = configs
+        dtype = COMPUTE_DTYPE if fp16 else torch.float32
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.unet = random_module(UNet, self.unet_config, self.device, gen, dtype)
+        self.vae = random_module(AutoencoderKL, self.vae_config, self.device, gen, dtype)
+        self.text_encoder = random_module(
+            CLIPTextEncoder, self.text_config, self.device, gen, dtype
+        )
+        self._tokenizer = tokenizer
+        alphas, sigmas = scaled_linear_alphas_sigmas()
+        self.schedule_alphas = torch.as_tensor(alphas, device=self.device)
+        self.schedule_sigmas = torch.as_tensor(sigmas, device=self.device)
+
+    def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
+        """Load {"unet", "vae", "text_encoder"} state_dicts (each module
+        keeps its own storage dtypes)."""
+        for key in ("unet", "vae", "text_encoder"):
+            getattr(self, key).load_state_dict(state_dicts[key])
+
+    @property
+    def tokenizer(self) -> SimpleTokenizer:
+        if self._tokenizer is None:
+            self._tokenizer = SimpleTokenizer()
+        return self._tokenizer
+
+    # -- schedule ------------------------------------------------------------
+
+    def schedule_indices(
+        self, n_steps: int = 50, from_index: int = 999, to_index: int = 0, rho: float = 7.0
+    ) -> np.ndarray:
+        """(k, 2) (from, to) index pairs, k <= n_steps."""
+        return indexed_schedule(
+            self.schedule_alphas.cpu().numpy(),
+            self.schedule_sigmas.cpu().numpy(),
+            n_steps=n_steps,
+            from_index=from_index,
+            to_index=to_index,
+            rho=rho,
+            strict=False,
+        )
+
+    # -- models --------------------------------------------------------------
+
+    def _indices(self, indices, batch: int) -> torch.Tensor:
+        indices = torch.as_tensor(indices, device=self.device)
+        if indices.ndim == 0:
+            indices = indices.expand(batch)
+        return indices
+
+    def predictions(
+        self, diffused_latents, indices, conditioning
+    ) -> LatentIndexedEpsPredictions:
+        """UNet eps prediction at schedule `indices` under text encodings
+        `conditioning` (N, 77, context_dim)."""
+        indices = self._indices(indices, diffused_latents.shape[0])
+        return self._make_predictions(
+            diffused_latents, indices, self.unet(diffused_latents, indices.float(), conditioning)
+        )
+
+    def _make_predictions(self, latents, indices, noise) -> LatentIndexedEpsPredictions:
+        return LatentIndexedEpsPredictions(
+            from_diffused_latents=latents,
+            from_indices=indices,
+            predicted_noise=noise,
+            schedule_alphas=self.schedule_alphas,
+            schedule_sigmas=self.schedule_sigmas,
+            encode=self.encode,
+            decode=self.decode,
+        )
+
+    def encode(self, images, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images (N, 3, H, W) in [0, 1] -> scaled latents: the posterior's
+        mode, or a sample from `generator`."""
+        self._check_size(images.shape[-2:])
+        return self.vae.encode(images, generator)
+
+    def decode(self, latents) -> torch.Tensor:
+        """scaled latents -> images (N, 3, H, W), fp32."""
+        return self.vae.decode(latents)
+
+    def preview_images_fn(self, latents) -> torch.Tensor:
+        """Linear latent -> RGB preview at latent resolution (no VAE):
+        approximate but differentiable and nearly free."""
+        factors = torch.as_tensor(_LATENT_RGB_FACTORS, dtype=latents.dtype, device=latents.device)
+        rgb = torch.einsum("nchw,cd->ndhw", latents, factors)
+        return clamp_with_grad(rgb * 0.5 + 0.5, 0.0, 1.0)
+
+    @torch.no_grad()
+    def conditioning(self, texts: Sequence[str]) -> torch.Tensor:
+        """texts -> (N, 77, width) fp32 text-encoder states."""
+        if self.unet_config.in_channels != self.vae_config.latent_channels:
+            raise NotImplementedError("the inpainting UNet is not ported")
+        tokens = tokenize(list(texts), self.text_config.context_length, tokenizer=self.tokenizer)
+        return self.text_encoder(torch.from_numpy(tokens).to(self.device))
+
+    def diffuse_latents(self, latents, indices, generator: torch.Generator) -> torch.Tensor:
+        """q-sample: alpha * x0 + sigma * noise."""
+        indices = self._indices(indices, latents.shape[0]).long()
+        alphas = self.schedule_alphas[indices][:, None, None, None]
+        sigmas = self.schedule_sigmas[indices][:, None, None, None]
+        noise = torch.randn(
+            latents.shape, generator=generator, device=latents.device, dtype=latents.dtype
+        )
+        return latents * alphas + noise * sigmas
+
+    def random_diffused_latents(
+        self, shape: Tuple[int, int, int], generator: torch.Generator
+    ) -> torch.Tensor:
+        """(N, H, W) pixel shape -> fully diffused latents."""
+        n, height, width = shape
+        self._check_size((height, width))
+        down = self.vae_config.downscale
+        return torch.randn(
+            (n, self.vae_config.latent_channels, height // down, width // down),
+            generator=generator, device=self.device,
+        )
+
+    def _check_size(self, size) -> None:
+        down = self.vae_config.downscale
+        if size[0] % down or size[1] % down:
+            raise ValueError(f"image size must be divisible by {down}, got {tuple(size)}")
+
+    # -- samplers ------------------------------------------------------------
+
+    @torch.no_grad()
+    def sample(
+        self,
+        texts: Sequence[str],
+        negative_texts: Optional[Sequence[str]] = None,
+        n_steps: int = 50,
+        guidance_scale: float = 7.0,
+        size: Tuple[int, int] = (512, 512),
+        eta: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        from_index: int = 999,
+        to_index: int = 0,
+        n_resample: int = 0,
+        init_images=None,
+        method: str = "ddim",
+    ) -> torch.Tensor:
+        """Text -> images (N, 3, H, W) in [0, 1], fp32.
+
+        img2img starts from `init_images` (their VAE latents diffused to
+        `from_index`); `n_resample` adds RePaint resampling iterations per
+        step; `method="dpm++"` swaps the DDIM update for DPM-Solver++(2M),
+        which is deterministic (no `eta`, no `n_resample`). Negative
+        prompts replace the empty uncond prompt. `generator` defaults to
+        one seeded 0 on the model's device."""
+        self._check_method(method, eta, n_resample)
+        generator, uncond, cond, pairs, latents = self._setup(
+            texts, negative_texts, n_steps, size, generator, from_index, to_index, init_images
+        )
+        latents = self.sample_loop(
+            latents, pairs, uncond, cond, guidance_scale, eta=eta, generator=generator,
+            n_resample=n_resample, method=method,
+        )
+        return self.decode(latents)
+
+    def _setup(
+        self, texts, negative_texts, n_steps, size, generator,
+        from_index=999, to_index=0, init_images=None,
+    ):
+        """The sampler's inputs: the generator (seeded 0 on the model's
+        device by default), the uncond (negative or empty prompts) and cond
+        encodings, the schedule pairs and the initial latents (random, or
+        `init_images` encoded and diffused to the first index)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        texts = list(texts)
+        uncond = self.conditioning(list(negative_texts) if negative_texts else [""] * len(texts))
+        cond = self.conditioning(texts)
+        pairs = self.schedule_indices(n_steps, from_index=from_index, to_index=to_index)
+        if init_images is None:
+            if from_index != 999:
+                raise ValueError("init_images must be provided if from_index < 999")
+            latents = self.random_diffused_latents((len(texts), *size), generator)
+        else:
+            init_images = torch.as_tensor(init_images, dtype=torch.float32, device=self.device)
+            latents = self.diffuse_latents(self.encode(init_images), int(pairs[0, 0]), generator)
+        return generator, uncond, cond, pairs, latents
+
+    @staticmethod
+    def _check_method(method: str, eta, n_resample: int) -> None:
+        if method not in METHODS:
+            raise ValueError(f"unknown sampling method: {method!r}")
+        if method == "dpm++" and (eta or n_resample):
+            raise ValueError("dpm++ is deterministic: eta/n_resample do not apply")
+
+    def cfg_predictions(self, latents, from_idx, context2, guidance_scale):
+        """CFG predictions from one batched UNet call on the (uncond, cond)
+        pair; `context2` is the uncond and cond encodings concatenated."""
+        noise2 = self.unet(
+            torch.cat([latents, latents]), torch.cat([from_idx, from_idx]).float(), context2
+        )
+        noise_uncond, noise_cond = noise2.chunk(2)
+        return self._make_predictions(latents, from_idx, noise_uncond).classifier_free_guidance(
+            self._make_predictions(latents, from_idx, noise_cond), guidance_scale
+        )
+
+    @torch.no_grad()
+    def sample_loop(
+        self,
+        latents: torch.Tensor,
+        pairs,
+        uncond: torch.Tensor,
+        cond: torch.Tensor,
+        guidance_scale: float = 7.0,
+        eta: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        n_resample: int = 0,
+        method: str = "ddim",
+    ) -> torch.Tensor:
+        """The sampler from given diffused latents: for each (from, to)
+        pair of `pairs`, `n_resample` RePaint iterations, then one CFG
+        prediction and a DDIM (or DPM-Solver++(2M)) step. Returns the final
+        latents."""
+        self._check_method(method, eta, n_resample)
+        for latents, _ in self._steps(
+            latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample, method
+        ):
+            pass
+        return latents
+
+    def _steps(self, latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample,
+               method):
+        """Yields (latents, CFG predictions) after each (from, to) pair."""
+        n = latents.shape[0]
+        context2 = torch.cat([uncond, cond])
+        pairs = torch.as_tensor(np.asarray(pairs), device=self.device).long()
+        prev_x0, prev_h = torch.zeros_like(latents), torch.ones((n, 1, 1, 1), device=self.device)
+        for i in range(pairs.shape[0]):
+            from_idx, to_idx = pairs[i, 0].expand(n), pairs[i, 1].expand(n)
+            for _ in range(n_resample):  # RePaint
+                predictions = self.cfg_predictions(latents, from_idx, context2, guidance_scale)
+                latents = predictions.resample(to_idx, generator)
+            predictions = self.cfg_predictions(latents, from_idx, context2, guidance_scale)
+            if method == "dpm++":
+                latents, prev_h = predictions.dpm_solver_pp_step(to_idx, prev_x0, prev_h, i == 0)
+                prev_x0 = predictions.denoised_xs
+            else:
+                latents = predictions.step(to_idx, eta=eta, generator=generator)
+            yield latents, predictions
+
+    @torch.no_grad()
+    def sample_iter(
+        self,
+        texts: Sequence[str],
+        negative_texts: Optional[Sequence[str]] = None,
+        n_steps: int = 50,
+        guidance_scale: float = 7.0,
+        size: Tuple[int, int] = (512, 512),
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Generator yielding the CFG predictions of each DDIM step, for
+        callbacks and previews; `sample()` gives the images."""
+        generator, uncond, cond, pairs, latents = self._setup(
+            texts, negative_texts, n_steps, size, generator
+        )
+        for _, predictions in self._steps(
+            latents, pairs, uncond, cond, guidance_scale, 0.0, generator, 0, "ddim"
+        ):
+            yield predictions

@@ -4,8 +4,9 @@ perceptor_tpu/ops/resize.py:34-225).
 The dense per-dimension weight matrices are built on the host in numpy,
 exactly as the JAX module builds them; the resize is two fp32 matmuls
 whose adjoint autograd derives. fp32 matmuls must run in full fp32, not
-TF32: `guided_step.build` sets `torch.backends.cuda.matmul.allow_tf32 =
-False` explicitly (the JAX code insists on `Precision.HIGHEST`).
+TF32: `core.init.resolve_device`, which every entry point calls, sets
+`torch.backends.cuda.matmul.allow_tf32 = False` explicitly (the JAX code
+insists on `Precision.HIGHEST`).
 """
 
 from __future__ import annotations

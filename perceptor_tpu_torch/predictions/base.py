@@ -7,13 +7,18 @@ perceptor_tpu/predictions/base.py), written over the canonical quantities
     predicted_noise  predicted eps                        (N, C, H, W)
 
 with the identity  from_xs = denoised_xs * alpha + predicted_noise * sigma.
-Only the deterministic methods of the guided step are ported; the
-stochastic samplers and thresholds wait (ROADMAP queue A).
+Stochastic methods draw their noise from an explicit `torch.Generator`,
+never the global RNG. Not ported: `reverse_step`, `noisy_reverse_step` and
+the wasserstein diagnostics (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from perceptor_tpu_torch.ops.clamp import clamp_with_grad
 
 
 def expand_like_batch(values, reference: torch.Tensor) -> torch.Tensor:
@@ -27,18 +32,94 @@ def expand_like_batch(values, reference: torch.Tensor) -> torch.Tensor:
     return values.reshape(values.shape[0], *([1] * (reference.ndim - 1)))
 
 
+def randn_like(reference: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Standard normal noise of `reference`'s shape, dtype and device from
+    `generator`, which must be given."""
+    if generator is None:
+        raise ValueError("stochastic methods need an explicit generator=")
+    return torch.randn(
+        reference.shape, generator=generator, device=reference.device, dtype=reference.dtype
+    )
+
+
+def quantile_threshold(xs: torch.Tensor, quantile: float, minimum: float) -> torch.Tensor:
+    """Per-sample `quantile` of |xs| (linear interpolation, as jnp.quantile),
+    at least `minimum`, shaped (N, 1, 1, 1)."""
+    flat = xs.reshape(xs.shape[0], -1).abs()
+    threshold = torch.clamp(torch.quantile(flat, quantile, dim=1), min=minimum)
+    return expand_like_batch(threshold, xs)
+
+
 class PredictionAlgebra:
     """Mixin over the subclass contract of perceptor_tpu/predictions/base.py:
     alphas(t), sigmas(t), from_alphas, from_sigmas, from_xs, denoised_xs,
     predicted_noise, _output, _replace_output, _from_pair, _decode_xs."""
 
-    def step(self, to, eta: float = 0.0):
-        """Deterministic DDIM update to noise level `to` (eta = 0)."""
-        if eta != 0.0:
-            raise NotImplementedError("step(eta>0) is not ported yet")
+    @property
+    def denoised_images(self):
+        return self._decode_xs(self.denoised_xs)
+
+    # -- samplers ----------------------------------------------------------
+
+    def step(self, to, eta: float = 0.0, generator: Optional[torch.Generator] = None):
+        """DDIM update to noise level `to`; eta > 0 adds fresh noise from
+        `generator`."""
         to_alphas, to_sigmas = self.alphas(to), self.sigmas(to)
-        to_xs = self.denoised_xs * to_alphas + self.predicted_noise * to_sigmas
+        if eta > 0.0:
+            ddim_sigma = (
+                eta
+                * torch.sqrt(to_sigmas**2 / self.from_sigmas**2)
+                * torch.sqrt(1 - self.from_alphas**2 / to_alphas**2)
+            )
+            adjusted_sigma = torch.sqrt(to_sigmas**2 - ddim_sigma**2)
+            to_xs = self.denoised_xs * to_alphas + self.predicted_noise * adjusted_sigma
+            to_xs = to_xs + randn_like(to_xs, generator) * ddim_sigma
+        else:
+            to_xs = self.denoised_xs * to_alphas + self.predicted_noise * to_sigmas
         return self._decode_xs(to_xs)
+
+    def correction(self, previous):
+        """PNDM-ish second-order correction: average two denoised estimates."""
+        return previous.forced_denoised_xs((self.denoised_xs + previous.denoised_xs) / 2)
+
+    def dpm_solver_pp_step(self, to, prev_denoised_xs, prev_h, is_first):
+        """DPM-Solver++(2M) multistep update (predictions/dpm_solver.py).
+        Carry `denoised_xs` and the returned `h` into the next step;
+        `is_first` selects the first-order update. Returns
+        (next_state_decoded, h)."""
+        from perceptor_tpu_torch.predictions.dpm_solver import dpm_pp_2m_update
+
+        to_xs, h = dpm_pp_2m_update(
+            self.from_xs,
+            self.denoised_xs,
+            prev_denoised_xs,
+            prev_h,
+            self.from_alphas,
+            self.from_sigmas,
+            self.alphas(to),
+            self.sigmas(to),
+            is_first,
+        )
+        return self._decode_xs(to_xs), h
+
+    def resample_noise(self, resample, generator: Optional[torch.Generator] = None):
+        """RePaint harmonizing noise at level `resample`."""
+        resample_sigmas = self.sigmas(resample)
+        fresh = randn_like(self.predicted_noise, generator)
+        resampled = (
+            resample_sigmas * self.predicted_noise
+            + torch.sqrt(self.from_sigmas**2 - resample_sigmas**2) * fresh
+        )
+        return resampled / self.from_sigmas
+
+    def resample(self, resample, generator: Optional[torch.Generator] = None):
+        """RePaint resampling step (https://github.com/andreas128/RePaint)."""
+        return self._decode_xs(
+            self.denoised_xs * self.from_alphas
+            + self.resample_noise(resample, generator) * self.from_sigmas
+        )
+
+    # -- guidance ----------------------------------------------------------
 
     def guided(self, guiding, guidance_scale: float = 0.5, clamp_value: float = 1e-6):
         """Add a (clamped, normalized) loss gradient onto the network output,
@@ -50,6 +131,28 @@ class PredictionAlgebra:
             / clamp_value
         )
         return self._replace_output(self._output + shift)
+
+    def classifier_free_guidance(self, positive, guidance_scale: float = 7.0):
+        """uncond + (positive - uncond) * scale on the raw output field."""
+        return self._replace_output(
+            self._output + (positive._output - self._output) * guidance_scale
+        )
+
+    # -- thresholding ------------------------------------------------------
+
+    def dynamic_threshold(self, quantile: float = 0.95):
+        """Imagen-style percentile clamp on denoised x."""
+        if quantile is None:
+            return self
+        threshold = quantile_threshold(self.denoised_xs, quantile, 1.0)
+        denoised_xs = clamp_with_grad(self.denoised_xs, -threshold, threshold)
+        return self.forced_denoised_xs(denoised_xs / threshold)
+
+    def static_threshold(self):
+        """Clamp denoised x to [-1, 1]."""
+        return self.forced_denoised_xs(clamp_with_grad(self.denoised_xs, -1.0, 1.0))
+
+    # -- forcing -----------------------------------------------------------
 
     def forced_denoised_xs(self, denoised_xs):
         """Replace the denoised estimate, rederiving the output field (the

@@ -3,16 +3,25 @@ perceptor_tpu/predictions/indexed.py `LatentIndexedEpsPredictions`).
 
 The JAX `core/pytree.Functional` record becomes a frozen dataclass with
 `dataclasses.replace`; schedule lookup is tensor indexing into the
-1000-entry alpha/sigma tables carried on the object.
+1000-entry alpha/sigma tables carried on the object. `encode` and `decode`
+are the frozen VAE's pixel <-> latent callables, for the pixel-space
+methods (`denoised_images`, the VAE round-trip `dynamic_threshold`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
-from perceptor_tpu_torch.predictions.base import PredictionAlgebra, expand_like_batch
+from perceptor_tpu_torch.ops.clamp import clamp_with_grad
+from perceptor_tpu_torch.predictions import diffusion_space
+from perceptor_tpu_torch.predictions.base import (
+    PredictionAlgebra,
+    expand_like_batch,
+    quantile_threshold,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +33,8 @@ class LatentIndexedEpsPredictions(PredictionAlgebra):
     predicted_noise: torch.Tensor  # (N, C, H/8, W/8)
     schedule_alphas: torch.Tensor  # (T,)
     schedule_sigmas: torch.Tensor  # (T,)
+    encode: Optional[Callable] = dataclasses.field(default=None, compare=False)
+    decode: Optional[Callable] = dataclasses.field(default=None, compare=False)
 
     def replace(self, **changes) -> "LatentIndexedEpsPredictions":
         return dataclasses.replace(self, **changes)
@@ -62,6 +73,15 @@ class LatentIndexedEpsPredictions(PredictionAlgebra):
         ) / torch.clamp(self.from_alphas, min=1e-7)
 
     @property
+    def denoised_latents(self):
+        return self.denoised_xs
+
+    @property
+    def denoised_images(self):
+        """VAE decode of the denoised latents."""
+        return self.decode(self.denoised_xs)
+
+    @property
     def _output(self):
         return self.predicted_noise
 
@@ -73,6 +93,7 @@ class LatentIndexedEpsPredictions(PredictionAlgebra):
         return self.replace(predicted_noise=predicted_noise)
 
     def _decode_xs(self, xs):
+        # x-space is latent space: the samplers hand back latents
         return xs
 
     def forced_denoised_latents(self, denoised_latents):
@@ -82,3 +103,24 @@ class LatentIndexedEpsPredictions(PredictionAlgebra):
             self.from_diffused_latents - denoised_latents * self.from_alphas
         ) / torch.clamp(self.from_sigmas, min=1e-7)
         return self.replace(predicted_noise=predicted_noise)
+
+    def latent_dynamic_threshold(self, quantile: float = 0.95):
+        """Percentile clamp directly on the predicted noise (at least 2.5)."""
+        if quantile is None:
+            return self
+        threshold = quantile_threshold(self.predicted_noise, quantile, 2.5)
+        return self.forced_predicted_noise(
+            clamp_with_grad(self.predicted_noise, -threshold, threshold)
+        )
+
+    def dynamic_threshold(self, quantile: float = 0.95):
+        """Pixel-space Imagen threshold: decode, clamp to the per-sample
+        quantile of |x| (at least 1) and rescale, encode back."""
+        if quantile is None:
+            return self
+        denoised_xs = diffusion_space.encode(self.decode(self.denoised_latents))
+        threshold = quantile_threshold(denoised_xs, quantile, 1.0)
+        denoised_xs = clamp_with_grad(denoised_xs, -threshold, threshold) / threshold
+        return self.forced_denoised_latents(
+            self.encode(diffusion_space.decode(denoised_xs))
+        )

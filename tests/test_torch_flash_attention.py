@@ -9,6 +9,9 @@ ones of tests/test_flash_attention.py: atol 2e-5 forward, 3e-5 gradients.
 
 import importlib.util
 import re
+import subprocess
+import sys
+import textwrap
 import types
 from pathlib import Path
 
@@ -23,12 +26,49 @@ from perceptor_tpu_torch.ops import attention as tattn
 from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
 
 torch.set_num_threads(2)
+# In a CPU process that has imported jax, the first torch.exp (alone, or
+# inside logsumexp) sometimes returns a chunk of values up to ~1.5e-4
+# relative off, about half the elements, while the matmul before it is
+# exact: 7 of 24 fresh processes under load, 0 of 72 in a quieter batch,
+# and never a later call (0 of 4800). The cause is not known. One throwaway
+# call at import keeps every comparison below on the settled kernel;
+# test_cpu_exp_is_exact_after_one_call checks what that relies on.
+torch.exp(torch.zeros(2, 256, 256))
 
 FWD_ATOL = 2e-5
 GRAD_ATOL = 3e-5
 # S = 256 with 128-row blocks: two K/V tiles, so the online-softmax
 # correction and the cross-tile accumulation are exercised
 SEQ, BLOCK = 256, 128
+
+
+# fp32 exp is good to a few ulps: 1e-6 relative is ~8 ulps, ~100x below
+# the first-call error
+EXP_RTOL = 1e-6
+_EXP_CALLS = textwrap.dedent("""
+    import jax
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 256, 256)).astype(np.float32) * 2)
+    want = torch.exp(x.double())
+    print(*(float(((torch.exp(x).double() - want) / want).abs().max()) for _ in range(2)))
+""")
+
+
+def test_cpu_exp_is_exact_after_one_call():
+    """Fresh processes that have imported jax, as this file's: the second
+    torch.exp matches float64 to fp32 rounding. The first call's error,
+    sometimes ~1e-4 (see the warm-up above), is printed, not asserted."""
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _EXP_CALLS], stdout=subprocess.PIPE, text=True)
+        for _ in range(4)
+    ]
+    errors = [tuple(map(float, proc.communicate(timeout=120)[0].split())) for proc in procs]
+    assert all(proc.returncode == 0 for proc in procs)
+    print("torch.exp relative error, (first, second) call per process:", errors)
+    assert all(second <= EXP_RTOL for _, second in errors), errors
 
 
 def _inputs(d, seed=0, b=1, h=2, s=SEQ):

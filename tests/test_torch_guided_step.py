@@ -145,10 +145,13 @@ def test_tiny_guided_steps_stay_finite():
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax,
-    flax or perceptor_tpu."""
+    flax or perceptor_tpu; the text-to-image entry points by name too."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import perceptor_tpu_torch, chip_smoke\n"
+        "import perceptor_tpu_torch.models.stable_diffusion.stable_diffusion\n"
+        "import perceptor_tpu_torch.models.clip.tokenizer\n"
+        "import perceptor_tpu_torch.engine.guidance\n"
         "for m in pkgutil.walk_packages(perceptor_tpu_torch.__path__, 'perceptor_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'perceptor_tpu'))\n"

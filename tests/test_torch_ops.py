@@ -171,7 +171,8 @@ def test_predictions_scalar_index_and_replace():
     assert tp.alphas(800).shape == (1, 1, 1, 1)
     replaced = tp.replace(predicted_noise=tp.predicted_noise * 0)
     assert replaced.from_diffused_latents is tp.from_diffused_latents
-    with pytest.raises(NotImplementedError):
+    # a stochastic step draws its noise from an explicit generator only
+    with pytest.raises(ValueError, match="generator"):
         tp.step(780, eta=0.5)
 
 
