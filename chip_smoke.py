@@ -36,10 +36,32 @@ exits non-zero without a result line:
                   decode or encode), finite images, seconds per image, ms
                   per sampling step, text-encode and decode ms, peak memory;
 6. sample_profile one CFG sampling step under torch.profiler;
-7. guided_sample  `engine.guided_sample` with CFG for 4 steps, the guided
-                  step's CLIP loss: 21 launches of each kernel a step, finite
+7. guided_sample  `engine.guided_sample` with CFG for 2 steps, the guided
+                  step's CLIP loss (a fixed random target): 21 launches of
+                  each kernel a step, finite latents and losses, ms per step
+                  and peak memory;
+8. text_tower     `models.CLIP("ViT-B-32")` (both towers, bf16): two prompts
+                  through the port's vocabulary and the text tower, unit
+                  norm, finite, within 5e-2 relative L2 of an fp32 copy of
+                  the same weights; text-encode ms;
+9. optimize_raw   `engine.optimize` of a 256px `Raw` fractal image under
+                  `losses.CLIP("ViT-B-32")` with a text prompt plus
+                  `losses.Smoothness()`, Adam 0.05, 30 steps: the loss falls,
+                  finite pixels, no flash launch (50 image tokens, masked
+                  text); ms per step, peak memory, one step under the
+                  profiler; then the same steps through `run_on_device`,
+                  whose history must equal `optimize`'s within 1e-6;
+10. optimize_cutouts  a 512px `Raw` under the same CLIP loss over
+                  `random_cutouts` (n = 8, 32, 64 cutouts of 224px, cut_pow
+                  0.5, a seeded CUDA generator), 10 steps each;
+11. optimize_jpeg `drawers.JPEG` from the 256px fractal image, 10 steps; its
+                  decode on the card against the CPU's (1e-4) and the round
+                  trip's mean error;
+12. guided_sample_text  `engine.guided_sample` with CFG 7, guidance 0.5, the
+                  text-prompted `losses.CLIP` over 16 random cutouts a step,
+                  4 steps at 512px: 21 launches of each kernel a step, finite
                   latents and losses, ms per step and peak memory;
-8. timings        each kernel, its plain version and PyTorch's
+13. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), beside the card's bound.
 
@@ -82,6 +104,9 @@ PER_STEP = {
     "guided_step": {"flash_fwd": 11, "flash_dq": 11, "flash_dkv": 11},
     "sample": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
     "guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
+    "guided_sample_text": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
+    # drawer -> CLIP ViT-B/32: 50 image tokens and a masked text tower
+    "optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -100,7 +125,32 @@ SAMPLE_RUNS = (
     ("dpm++", {"n_steps": 10, "method": "dpm++"}),
     ("img2img", {"n_steps": 5, "from_index": 600, "eta": 0.5, "n_resample": 1}),
 )
-GUIDED_SAMPLE_STEPS = 4
+GUIDED_SAMPLE_STEPS = 2
+# the text-prompted optimization phases (CLIP ViT-B/32, openai config)
+CLIP_NAME = "ViT-B-32"
+TEXT_PROMPTS = (PROMPT, "an oil painting of a lighthouse at dusk")
+RAW_SIZE = 256
+RAW_STEPS = 30
+CUTOUT_IMAGE_SIZE = 512
+CUTOUT_COUNTS = (8, 32, 64)
+CUT_SIZE = 224
+CUT_POW = 0.5
+CUTOUT_STEPS = 10
+# every step draws new cutouts, so the history is noisy from step to step:
+# the loss must fall under one fixed draw of this many boxes, before to after
+CUTOUT_EVAL_COUNT = 64
+JPEG_STEPS = 10
+GUIDED_TEXT_STEPS = 4
+GUIDED_TEXT_CUTOUTS = 16
+# bf16 towers against an fp32 copy of the same weights, relative L2
+TEXT_BF16_RTOL = 5e-2
+# `optimize` and `run_on_device` do the same arithmetic in the same order
+RUN_ON_DEVICE_ATOL = 1e-6
+# the JPEG decode on the card against the CPU's, same coefficients, fp32
+JPEG_DECODE_ATOL = 1e-4
+# the codec is lossy (2x chroma subsampling, quantization at factor 1): the
+# round trip of the fractal image is held to a mean absolute error only
+JPEG_ROUND_TRIP_MEAN = 0.1
 # bf16 kernels vs fp32 arithmetic: bf16 keeps 8 mantissa bits, so rounding
 # the output alone costs ~2e-3 of its magnitude, and P / dS are rounded to
 # bf16 before their products; 2e-2 of the reference's largest magnitude
@@ -621,8 +671,8 @@ def phase_sample_profile(sd) -> dict:
 
 def phase_guided_sample(fa, sd, step):
     """`engine.guided_sample` at 512px with CFG 7 and guidance scale 0.5,
-    the loss the guided step's CLIP ViT-B/32 spherical distance to its fixed
-    target, for GUIDED_SAMPLE_STEPS steps: finite latents and losses, 21
+    the loss the guided step's prompt-bank loss (CLIP ViT-B/32, spherical
+    distance to its fixed target), for GUIDED_SAMPLE_STEPS steps: finite latents and losses, 21
     launches of each kernel a step, ms per step and peak memory. Returns
     (launches, launches per step)."""
     import torch
@@ -656,6 +706,290 @@ def phase_guided_sample(fa, sd, step):
         "guidance_scale": 0.5, "cfg_scale": CFG_SCALE, "losses": losses.tolist(),
         "latents_shape": list(out.shape), "ms_per_step": start.elapsed_time(end) / k,
         "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": measured,
+    })
+    return launches, measured
+
+
+def text_loss(prompts=TEXT_PROMPTS[:1]):
+    """`losses.CLIP` with a text prompt bank; every call shares the one
+    memoized tower."""
+    from perceptor_tpu_torch import losses
+
+    return losses.CLIP(CLIP_NAME).add_texts_(list(prompts))
+
+
+def phase_text_tower(fa):
+    """Both CLIP towers at full width; the text tower on two prompts against
+    an fp32 copy of the same weights. Returns the wrapper, which the later
+    phases' losses share."""
+    import copy
+
+    import torch
+
+    from perceptor_tpu_torch import models
+    from perceptor_tpu_torch.models.clip.tokenizer import tokenize
+
+    t0 = time.perf_counter()
+    clip = models.CLIP(CLIP_NAME)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fa.reset_launches()
+    prompts = list(TEXT_PROMPTS)
+    encodings = clip.encode_texts(prompts)  # warm-up, and the checked result
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(5):
+        start.record()
+        clip.encode_texts(prompts)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    tokens = tokenize(prompts, clip.config.context_length, tokenizer=clip.tokenizer)
+    with torch.no_grad():
+        reference = copy.deepcopy(clip.module).float().encode_text(tokens)
+    reference = reference / reference.norm(dim=-1, keepdim=True)
+    err = _rel_l2(encodings, reference)
+    norms = encodings.norm(dim=-1)
+    if tuple(encodings.shape) != (len(prompts), clip.config.embed_dim):
+        raise AssertionError(f"text_tower: encodings {tuple(encodings.shape)}")
+    if not torch.isfinite(encodings).all() or float((norms - 1).abs().max()) > 1e-5:
+        raise AssertionError(f"text_tower: norms {norms.tolist()}")
+    if not err <= TEXT_BF16_RTOL:
+        raise AssertionError(f"text_tower: bf16 vs fp32 relative L2 {err} > {TEXT_BF16_RTOL}")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"text_tower: flash launches {dict(fa.LAUNCHES)}")
+    emit({
+        "phase": "text_tower", "ok": True, "model": CLIP_NAME, "build_s": build_s,
+        "parameters": sum(p.numel() for p in clip.module.parameters()),
+        "prompts": prompts, "eot_positions": tokens.argmax(-1).tolist(),
+        "encodings_shape": list(encodings.shape), "bf16_vs_fp32_rel_l2": err,
+        "tol": TEXT_BF16_RTOL, "cosine_between_prompts": float(encodings[0] @ encodings[1]),
+        "text_encode_ms": sorted(times)[len(times) // 2],
+    })
+    return clip
+
+
+def run_optimize(fa, name, drawer, objectives, steps, extra=None, evaluate=None) -> dict:
+    """`engine.optimize` for `steps` Adam steps, a CUDA event after each:
+    the loss must fall (the history's last entry below its first, or, where
+    every step draws new cutouts, `evaluate()` after the steps below
+    `evaluate()` before them), parameters and history stay finite, no flash
+    kernel may launch. ms per step is the median after the first (warm-up)
+    step; the peak is read from an emptied allocator cache."""
+    import torch
+
+    from perceptor_tpu_torch import engine
+
+    before = evaluate() if evaluate else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    _, history = engine.optimize(
+        drawer, objectives, n_steps=steps,
+        callback=lambda i, params, aux: events[i + 1].record(),
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    check_per_step("optimize", per_step(launches, steps))
+    finite = all(math.isfinite(h) for h in history) and all(
+        bool(torch.isfinite(p).all()) for p in drawer.parameters())
+    if not finite:
+        raise AssertionError(f"{name}: non-finite history or parameters")
+    first, last = (before, evaluate()) if evaluate else (history[0], history[-1])
+    if not last < first:
+        raise AssertionError(f"{name}: loss did not fall: {first} -> {last} ({history})")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    record = {
+        "steps": steps, "loss_first": first, "loss_last": last, "history": history,
+        "first_step_ms": step_ms[0], "ms_per_step": sorted(step_ms[1:])[(steps - 1) // 2],
+        "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "flash_launches": launches, **(extra or {}),
+    }
+    return record
+
+
+def step_profile(drawer, objectives) -> dict:
+    """One more optimization step under torch.profiler (and three unprofiled
+    before it): device ms, launches and the busy share."""
+    from perceptor_tpu_torch import engine
+
+    record = profile_record(engine.make_guidance_step(drawer, objectives))
+    return {k: record[k] for k in (
+        "device_ms", "kernel_launches", "unprofiled_ms", "device_busy_share_unprofiled",
+        "step_wall_ms", "device_busy_share")}
+
+
+def phase_optimize_raw(fa) -> None:
+    """Text-prompted optimization of a 256px pixel grid, then the same steps
+    through `run_on_device`."""
+    import torch
+
+    from perceptor_tpu_torch import drawers, engine, losses
+
+    shape = (1, 3, RAW_SIZE, RAW_SIZE)
+    objectives = [text_loss(), losses.Smoothness()]
+    drawer = drawers.Raw.random_fractal_image(shape, seed=0)
+    record = run_optimize(fa, "optimize_raw", drawer, objectives, RAW_STEPS)
+    if tuple(drawer.synthesize().shape) != shape:
+        raise AssertionError(f"optimize_raw: images {tuple(drawer.synthesize().shape)}")
+    # the same steps with no read-back: a fresh drawer from the same seed
+    fresh = drawers.Raw.random_fractal_image(shape, seed=0)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fa.reset_launches()
+    start.record()
+    params, history = engine.run_on_device(fresh, objectives, fresh.params, RAW_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    check_per_step("optimize", per_step(dict(fa.LAUNCHES), RAW_STEPS))
+    if not (history.is_cuda and params.is_cuda and history.shape == (RAW_STEPS,)):
+        raise AssertionError("run_on_device: history or parameters left the device")
+    diff = float((history.cpu() - torch.tensor(record["history"])).abs().max())
+    if not diff <= RUN_ON_DEVICE_ATOL:
+        raise AssertionError(f"run_on_device: history differs from optimize's by {diff}")
+    pixels_diff = float((params - drawer.pixels.detach()).abs().max())
+    emit({
+        "phase": "optimize_raw", "ok": True, "model": CLIP_NAME, "image_size": RAW_SIZE,
+        "prompt": TEXT_PROMPTS[0], **record,
+        "run_on_device": {
+            "ms_per_step": start.elapsed_time(end) / RAW_STEPS,
+            "history_max_abs_diff": diff, "tol": RUN_ON_DEVICE_ATOL,
+            "pixels_max_abs_diff": pixels_diff,
+        },
+        "profile": step_profile(drawer, objectives),
+    })
+
+
+def phase_optimize_cutouts(fa) -> None:
+    """A 512px pixel grid under the CLIP loss over n random cutouts."""
+    import torch
+
+    from perceptor_tpu_torch import drawers
+    from perceptor_tpu_torch.transforms import random_cutouts
+
+    clip_loss = text_loss()
+    shape = (1, 3, CUTOUT_IMAGE_SIZE, CUTOUT_IMAGE_SIZE)
+
+    def fixed_draw_loss(drawer) -> float:
+        generator = torch.Generator(device="cuda").manual_seed(1)
+        with torch.no_grad():
+            return float(clip_loss(random_cutouts(
+                drawer.synthesize(), generator, CUTOUT_EVAL_COUNT, cut_size=CUT_SIZE,
+                cut_pow=CUT_POW)))
+
+    runs = []
+    for n in CUTOUT_COUNTS:
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        shapes = set()
+
+        def cutout_loss(images, n=n, generator=generator, shapes=shapes):
+            cutouts = random_cutouts(images, generator, n, cut_size=CUT_SIZE, cut_pow=CUT_POW)
+            shapes.add(tuple(cutouts.shape))
+            return clip_loss(cutouts)
+
+        drawer = drawers.Raw.random_fractal_image(shape, seed=0)
+        record = run_optimize(fa, f"optimize_cutouts n={n}", drawer, [cutout_loss],
+                              CUTOUT_STEPS, {"n_cutouts": n},
+                              evaluate=lambda: fixed_draw_loss(drawer))
+        if shapes != {(n, 3, CUT_SIZE, CUT_SIZE)}:
+            raise AssertionError(f"optimize_cutouts n={n}: cutouts {sorted(shapes)}")
+        record["cutouts_shape"] = [n, 3, CUT_SIZE, CUT_SIZE]
+        record["profile"] = step_profile(drawer, [cutout_loss])
+        runs.append(record)
+    emit({"phase": "optimize_cutouts", "ok": True, "model": CLIP_NAME,
+          "image_size": CUTOUT_IMAGE_SIZE, "cut_size": CUT_SIZE, "cut_pow": CUT_POW,
+          "runs": runs})
+
+
+def phase_optimize_jpeg(fa) -> None:
+    """The JPEG drawer: its decode on the card against the CPU's, the round
+    trip of the image it encoded, then optimization of its coefficients."""
+    import torch
+
+    from perceptor_tpu_torch import drawers, losses
+    from perceptor_tpu_torch.drawers import inits
+    from perceptor_tpu_torch.drawers.jpeg import decompress_jpeg
+
+    image = inits.fractal((1, 3, RAW_SIZE, RAW_SIZE), seed=0)
+    drawer = drawers.JPEG(image)
+    with torch.no_grad():
+        decoded = drawer.synthesize()
+        on_cpu = decompress_jpeg(*(p.detach().cpu() for p in drawer.parameters()),
+                                 RAW_SIZE, RAW_SIZE, drawer.factor)
+    decode_err = float((decoded.cpu() - on_cpu).abs().max())
+    if not decode_err <= JPEG_DECODE_ATOL:
+        raise AssertionError(f"optimize_jpeg: decode differs from the CPU's by {decode_err}")
+    round_trip = (decoded.cpu() - torch.from_numpy(image)).abs()
+    if not float(round_trip.mean()) <= JPEG_ROUND_TRIP_MEAN:
+        raise AssertionError(f"optimize_jpeg: round trip mean error {float(round_trip.mean())}")
+    objectives = [text_loss(), losses.Smoothness()]
+    record = run_optimize(fa, "optimize_jpeg", drawer, objectives, JPEG_STEPS)
+    emit({
+        "phase": "optimize_jpeg", "ok": True, "model": CLIP_NAME, "image_size": RAW_SIZE,
+        "coefficient_shapes": [list(p.shape) for p in drawer.parameters()],
+        "decode_vs_cpu_max_abs": decode_err, "decode_tol": JPEG_DECODE_ATOL,
+        "round_trip_mean_abs": float(round_trip.mean()),
+        "round_trip_max_abs": float(round_trip.max()), "round_trip_mean_tol": JPEG_ROUND_TRIP_MEAN,
+        **record, "profile": step_profile(drawer, objectives),
+    })
+
+
+def phase_guided_sample_text(fa, sd):
+    """`engine.guided_sample` at 512px with CFG 7 and guidance scale 0.5
+    under the text-prompted CLIP loss over 16 random cutouts a step: finite
+    latents and losses, 21 launches of each kernel a step, ms per step and
+    peak memory. Returns (launches, launches per step)."""
+    import torch
+
+    from perceptor_tpu_torch.engine import guided_sample
+    from perceptor_tpu_torch.transforms import random_cutouts
+
+    uncond, cond = sd.conditioning([""]), sd.conditioning([PROMPT])
+    latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE), torch.Generator("cuda").manual_seed(4))
+    pairs = sd.schedule_indices(GUIDED_TEXT_STEPS)
+    shapes = set()
+
+    def augment(generator, images):
+        cutouts = random_cutouts(images, generator, GUIDED_TEXT_CUTOUTS)
+        shapes.add(tuple(cutouts.shape))
+        return cutouts
+
+    options = dict(conditioning=cond, uncond_conditioning=uncond, cfg_scale=CFG_SCALE,
+                   guidance_scale=0.5, image_augment=augment)
+    objectives = [text_loss()]
+    guided_sample(sd, objectives, latents, pairs[:1],
+                  generator=torch.Generator("cuda").manual_seed(5), **options)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out, losses = guided_sample(sd, objectives, latents, pairs,
+                                generator=torch.Generator("cuda").manual_seed(5), **options)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    k = len(pairs)
+    measured = per_step(launches, k)
+    check_per_step("guided_sample_text", measured)
+    if not (torch.isfinite(out).all() and torch.isfinite(losses).all()):
+        raise AssertionError("guided_sample_text: non-finite latents or losses")
+    if shapes != {(GUIDED_TEXT_CUTOUTS, 3, 224, 224)}:
+        raise AssertionError(f"guided_sample_text: cutouts {sorted(shapes)}")
+    emit({
+        "phase": "guided_sample_text", "ok": True, "steps": k, "pairs": pairs.tolist(),
+        "prompt": PROMPT, "n_cutouts": GUIDED_TEXT_CUTOUTS, "guidance_scale": 0.5,
+        "cfg_scale": CFG_SCALE, "losses": losses.tolist(), "latents_shape": list(out.shape),
+        "ms_per_step": start.elapsed_time(end) / k, "wall_s": wall,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches, "launches_per_step": measured,
     })
     return launches, measured
@@ -762,6 +1096,7 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
                 "guided_step": weighted("ms"),
                 "sample": sum(r["ms"] * r["per_step"] for r in sampling),
                 "guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
+                "guided_sample_text": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
             },
         })
     return table
@@ -810,7 +1145,16 @@ def main() -> int:
     launches["sample"], measured["sample"] = phase_sample(fa, sd)
     phase_sample_profile(sd)
     launches["guided_sample"], measured["guided_sample"] = phase_guided_sample(fa, sd, step)
+    # the optimization phases' peaks are their own: no diffusion model loaded
     del step, sd
+    torch.cuda.empty_cache()
+    clip = phase_text_tower(fa)  # held: the phases below share this tower
+    phase_optimize_raw(fa)
+    phase_optimize_cutouts(fa)
+    phase_optimize_jpeg(fa)
+    sd = StableDiffusion(MODEL, device="cuda", seed=0)
+    launches["guided_sample_text"], measured["guided_sample_text"] = phase_guided_sample_text(fa, sd)
+    del sd, clip
     torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
 

@@ -9,7 +9,7 @@ perceptor_tpu/models/clip/convert.py):
     dense  (I, O)         -> (O, I)
     norm   scale          -> weight
 
-The port's keys are diffusers' (UNet, VAE) and open_clip's (CLIP visual), so
+The port's keys are diffusers' (UNet, VAE) and open_clip's (CLIP), so
 the JAX package's own `unet_from_diffusers`, `vae_from_diffusers` and
 `from_openclip` map these state_dicts back to the same trees.
 """
@@ -210,6 +210,21 @@ def clip_visual_state_dict_from_jax(visual: Mapping, cfg: CLIPConfig) -> StateDi
     _norm(visual["ln_pre"], "visual.ln_pre", sd)
     _norm(visual["ln_post"], "visual.ln_post", sd)
     _transformer(visual["transformer"], "visual.transformer", cfg.vision_layers, sd)
+    return sd
+
+
+def clip_state_dict_from_jax(params: Mapping, cfg: CLIPConfig) -> StateDict:
+    """Flax `CLIP` params ({"visual", "text", "logit_scale"}) -> the port's
+    open_clip-named state_dict: `visual.*`, the text tower at the top level
+    and `logit_scale`."""
+    sd = clip_visual_state_dict_from_jax(params["visual"], cfg)
+    text = params["text"]
+    sd["token_embedding.weight"] = _t(text["token_embedding"])
+    sd["positional_embedding"] = _t(text["positional_embedding"])
+    sd["text_projection"] = _t(text["text_projection"])
+    _norm(text["ln_final"], "ln_final", sd)
+    _transformer(text["transformer"], "transformer", cfg.text_layers, sd)
+    sd["logit_scale"] = _t(params["logit_scale"])
     return sd
 
 

@@ -39,12 +39,15 @@ def resolve_device(device) -> torch.device:
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill parameters like `init_by_shape`: weights ~ N(0, 1/fan_in), biases
-    zero, 1-D norm weights one. fan_in is the input size of a conv/linear
-    weight (torch layout), else the product of all but the last dim (the
-    flax layout of `proj` and `positional_embedding`)."""
+    zero, 1-D norm weights one, scalars (CLIP's `logit_scale`) one standard
+    normal draw. fan_in is the input size of a conv/linear weight (torch
+    layout), else the product of all but the last dim (the flax layout of
+    `proj` and `positional_embedding`)."""
     for name, param in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if "bias" in leaf:
+        if param.ndim == 0:
+            param.copy_(torch.randn((), generator=generator, device=param.device))
+        elif "bias" in leaf:
             param.zero_()
         elif param.ndim == 1 and leaf == "weight":
             param.fill_(1.0)

@@ -1,3 +1,8 @@
-from perceptor_tpu_torch.engine.guidance import guided_sample
+from perceptor_tpu_torch.engine.guidance import (
+    guided_sample,
+    make_guidance_step,
+    optimize,
+    run_on_device,
+)
 
-__all__ = ["guided_sample"]
+__all__ = ["guided_sample", "make_guidance_step", "optimize", "run_on_device"]

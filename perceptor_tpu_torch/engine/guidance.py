@@ -1,26 +1,153 @@
-"""Loss-guided diffusion sampling (counterpart of
-perceptor_tpu/engine/guidance.py `guided_sample` and `_build_guided_run`).
+"""Guided optimization of a drawer and loss-guided diffusion sampling
+(counterpart of perceptor_tpu/engine/guidance.py).
 
-Per schedule step: model predictions at `from_index` -> the images the
+Optimization (`make_guidance_step`, `optimize`, `run_on_device`): per step
+drawer.synthesize() -> every loss on the same images -> the weighted sum,
+plus the drawer's own `loss()` penalty where it has one -> one backward
+pass -> one optimizer step. Where the JAX package compiles a step into one
+program (and `run_on_device` the whole loop into one `lax.scan`), here the
+steps are eager; `run_on_device` keeps its contract, no host read-back
+inside the loop and a history that stays on the device, and the JAX
+package's tables of compiled programs have no counterpart. Only the
+drawer's parameters are trainable: the losses' towers are frozen.
+
+Sampling (`guided_sample`), per schedule step: model predictions at `from_index` -> the images the
 losses see -> weighted loss sum -> its gradient with respect to the diffused
 latents (`torch.autograd.grad`, back through the decoder and the UNet) ->
 `.guided(grad, guidance_scale)` -> optional threshold -> DDIM step. Where
 the JAX package compiles the loop into one `lax.scan` program, here it is
 an eager Python loop; randomness comes from an explicit `torch.Generator`.
 
-Not ported (ROADMAP queue A): `mesh`/`rules`, `export_guided_sample`, and
-the drawer loops `optimize`, `make_guidance_step` and `run_on_device`.
+Not ported (ROADMAP queue A): `mesh`/`rules` and `export_guided_sample`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 THRESHOLDS = (None, "dynamic", "static")
 LOSS_IMAGES = ("decoded", "preview")
+DEFAULT_LR = 0.05
+
+OptimizerOrFactory = Union[torch.optim.Optimizer, Callable[..., torch.optim.Optimizer], None]
+
+
+def _make_optimizer(optimizer: OptimizerOrFactory, params) -> torch.optim.Optimizer:
+    """`optimizer` itself, or the factory's (default Adam, lr 0.05: optax's
+    adam(0.05), same betas, eps and bias correction) over `params`."""
+    if isinstance(optimizer, torch.optim.Optimizer):
+        return optimizer
+    if optimizer is None:
+        return torch.optim.Adam(params, lr=DEFAULT_LR)
+    return optimizer(params)
+
+
+def _loss_weights(loss_weights, n_losses: int, device) -> torch.Tensor:
+    weights = list(loss_weights) if loss_weights is not None else [1.0] * n_losses
+    return torch.tensor(weights, dtype=torch.float32, device=device)
+
+
+def _objective(synthesize, losses, weights, params=None):
+    """(weighted total, per-loss values) of a drawer or a plain
+    `params -> images` callable, at the drawer's own parameters or at
+    `params` given in their place."""
+    synth = synthesize.synthesize if hasattr(synthesize, "synthesize") else synthesize
+    args = () if params is None else (params,)
+    images = synth(*args)
+    values = torch.stack([loss(images).float().reshape(()) for loss in losses])
+    total = (values * weights).sum()
+    penalty = getattr(synthesize, "loss", None)
+    if penalty is not None:
+        total = total + penalty(*args)
+    return total, values
+
+
+def _optimizer_step(optimizer, synthesize, losses, weights, params=None):
+    """One backward pass over the objective and one optimizer step: the
+    (total, per-loss values) from before the update, detached."""
+    optimizer.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        total, values = _objective(synthesize, losses, weights, params)
+        total.backward()
+    optimizer.step()
+    return total.detach(), values.detach()
+
+
+def make_guidance_step(
+    drawer,
+    losses: Sequence[Callable],
+    optimizer: OptimizerOrFactory = None,
+    loss_weights: Optional[Sequence[float]] = None,
+):
+    """Returns `step() -> {"loss", "losses"}` (device tensors: the total and
+    the per-loss values before the update), which synthesizes, evaluates
+    every loss on the same images, takes one backward pass over the weighted
+    sum and steps the optimizer. `optimizer` is a `torch.optim.Optimizer`
+    over `drawer.parameters()`, a factory `params -> Optimizer`, or None for
+    Adam with lr 0.05."""
+    params = [p for p in drawer.parameters() if p.requires_grad]
+    optimizer = _make_optimizer(optimizer, params)
+    weights = _loss_weights(loss_weights, len(losses), params[0].device)
+
+    def step():
+        total, values = _optimizer_step(optimizer, drawer, losses, weights)
+        return {"loss": total, "losses": values}
+
+    return step
+
+
+def optimize(
+    drawer,
+    losses: Sequence[Callable],
+    n_steps: int = 100,
+    optimizer: OptimizerOrFactory = None,
+    loss_weights: Optional[Sequence[float]] = None,
+    callback: Optional[Callable] = None,
+):
+    """Host loop: optimize the drawer's parameters in place. `callback(i,
+    params, aux)` runs after each step. Returns (drawer, history of total
+    losses as floats); the history is read back once, after the loop."""
+    step = make_guidance_step(drawer, losses, optimizer, loss_weights)
+    history = []
+    for i in range(n_steps):
+        aux = step()
+        history.append(aux["loss"])
+        if callback is not None:
+            callback(i, drawer.params, aux)
+    return drawer, (torch.stack(history).tolist() if history else [])
+
+
+def run_on_device(
+    synthesize,
+    losses: Sequence[Callable],
+    params,
+    n_steps: int,
+    optimizer: Optional[Callable[..., torch.optim.Optimizer]] = None,
+    loss_weights: Optional[Sequence[float]] = None,
+):
+    """The whole optimization with no host read-back: `synthesize` is a
+    drawer or a `params -> images` callable, `params` a tensor or a sequence
+    of tensors, left untouched (the drawer's own parameters too: pass the
+    result to `replace_`). `optimizer` is a factory `params -> Optimizer`
+    (default Adam, lr 0.05); an optimizer instance is bound to other
+    tensors and is refused. Returns (final params, per-step total losses as
+    a device tensor)."""
+    if isinstance(optimizer, torch.optim.Optimizer):
+        raise TypeError("run_on_device builds its optimizer: pass a factory params -> Optimizer")
+    single = isinstance(params, torch.Tensor)
+    leaves = [p.detach().clone().requires_grad_(True) for p in ((params,) if single else params)]
+    optimizer = _make_optimizer(optimizer, leaves)
+    weights = _loss_weights(loss_weights, len(losses), leaves[0].device)
+    params = leaves[0] if single else tuple(leaves)
+    history = [
+        _optimizer_step(optimizer, synthesize, losses, weights, params)[0] for _ in range(n_steps)
+    ]
+    final = [p.detach() for p in leaves]
+    history = torch.stack(history) if history else torch.zeros(0, device=leaves[0].device)
+    return (final[0] if single else tuple(final)), history
 
 
 def guided_sample(
@@ -80,10 +207,7 @@ def guided_sample(
     if (eta > 0.0 or n_resample) and generator is None:
         raise ValueError("eta > 0 and n_resample draw noise: pass generator=")
     device = initial_latents.device
-    weights = torch.tensor(
-        list(loss_weights) if loss_weights is not None else [1.0] * len(losses),
-        dtype=torch.float32, device=device,
-    )
+    weights = _loss_weights(loss_weights, len(losses), device)
     pairs = torch.as_tensor(np.asarray(pairs), device=device).long()
 
     def make_predictions(latents, from_idx):

@@ -20,11 +20,19 @@ Usage::
     latents, context = step.initial_inputs()
     for _ in range(n):
         latents, loss = step.guided_denoise_step(latents, context)
+
+Run as a module it prints the step's losses bit for bit, to compare two
+trees of the port on one card (two trees whose step does the same
+arithmetic print the same line)::
+
+    PYTHONPATH=<tree> python3 -m perceptor_tpu_torch.guided_step [steps]
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import sys
 from typing import Tuple
 
 import numpy as np
@@ -32,14 +40,12 @@ import torch
 
 from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE
 from perceptor_tpu_torch.core.init import random_module, resolve_device
-from perceptor_tpu_torch.losses.prompt_bank import _l2_normalize, spherical_distance_squared
+from perceptor_tpu_torch.losses.prompt_bank import PromptBankLoss
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig, get_config
-from perceptor_tpu_torch.models.clip.model import CLIP
-from perceptor_tpu_torch.models.open_clip import CLIP_MEAN, CLIP_STD
+from perceptor_tpu_torch.models.open_clip import OpenCLIP
 from perceptor_tpu_torch.models.stable_diffusion import config as sd_config
 from perceptor_tpu_torch.models.stable_diffusion.unet import UNet
 from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
-from perceptor_tpu_torch.ops.resize import resize
 from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions
 from perceptor_tpu_torch.schedules import scaled_linear_alphas_sigmas
 
@@ -82,12 +88,14 @@ CONFIGS = {
 
 
 class GuidedStep:
-    """The three frozen models and the constants of the guided step."""
+    """The three frozen models and the constants of the guided step.
+    `clip_loss` is the prompt-bank loss over the CLIP wrapper, its bank the
+    one fixed target; `clip` is the wrapper's module."""
 
-    def __init__(self, cfg: StepConfig, unet: UNet, vae: AutoencoderKL, clip: CLIP,
+    def __init__(self, cfg: StepConfig, unet: UNet, vae: AutoencoderKL, clip: OpenCLIP,
                  device: torch.device, seed: int):
         self.config = cfg
-        self.unet, self.vae, self.clip = unet, vae, clip
+        self.unet, self.vae, self.clip = unet, vae, clip.module
         self.device = device
         self.seed = seed
         alphas, sigmas = scaled_linear_alphas_sigmas()
@@ -97,8 +105,7 @@ class GuidedStep:
         target = np.random.default_rng(2).normal(size=(1, cfg.clip.embed_dim))
         target = (target / np.linalg.norm(target, axis=-1, keepdims=True)).astype(np.float32)
         self.target = torch.as_tensor(target, device=device)
-        self.mean = torch.as_tensor(CLIP_MEAN, device=device).reshape(1, 3, 1, 1)
-        self.std = torch.as_tensor(CLIP_STD, device=device).reshape(1, 3, 1, 1)
+        self.clip_loss = PromptBankLoss(clip).add_encodings_(self.target)
         self.from_idx = torch.tensor([FROM_INDEX], device=device)
         self.to_idx = torch.tensor([TO_INDEX], device=device)
 
@@ -124,12 +131,6 @@ class GuidedStep:
             schedule_alphas=self.alphas,
             schedule_sigmas=self.sigmas,
         )
-
-    def clip_loss(self, images: torch.Tensor) -> torch.Tensor:
-        images = resize(images, out_shape=self.config.clip.image_size)
-        images = (images - self.mean) / self.std
-        encodings = _l2_normalize(self.clip.encode_image(images))
-        return spherical_distance_squared(encodings, self.target).mean()
 
     def loss_and_noise(self, latents: torch.Tensor, context: torch.Tensor):
         noise = self.unet(latents, self.from_idx.float(), context)
@@ -161,5 +162,31 @@ def build(config: str = "sd-v1-512", device="cuda", seed: int = 0) -> GuidedStep
     gen = torch.Generator(device=device).manual_seed(seed)
     unet = random_module(UNet, cfg.unet, device, gen, cfg.dtype)
     vae = random_module(AutoencoderKL, cfg.vae, device, gen, cfg.dtype)
-    clip = random_module(CLIP, cfg.clip, device, gen, cfg.dtype)
+    # the wrapper continues the generator's stream. It is built past the
+    # memoization (`__wrapped__` is the class itself): the cache keys on the
+    # text of the arguments, and a generator's text is its address, which a
+    # later generator can reuse
+    clip = OpenCLIP.__wrapped__(
+        "guided-step", "random", precision=None if cfg.dtype == COMPUTE_DTYPE else "fp32",
+        config=cfg.clip, device=device, seed=gen,
+    )
     return GuidedStep(cfg, unet, vae, clip, device, seed)
+
+
+def main(argv) -> int:
+    """`steps` (default 5) full-width guided steps on CUDA from seed 0: one
+    JSON line with each loss and the sum of the final latents as
+    hexadecimal floats."""
+    steps = int(argv[1]) if len(argv) > 1 else 5
+    step = build("sd-v1-512", device="cuda", seed=0)
+    latents, context = step.initial_inputs()
+    losses = []
+    for _ in range(steps):
+        latents, loss = step.guided_denoise_step(latents, context)
+        losses.append(float(loss).hex())
+    print(json.dumps({"losses": losses, "latents_sum": float(latents.double().sum()).hex()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -1,0 +1,36 @@
+"""Frozen model wrappers (counterpart of perceptor_tpu/models/__init__.py).
+
+Lazy imports keep `import perceptor_tpu_torch.models` cheap. A wrapper of
+the JAX package that is not ported yet raises an AttributeError that says
+so; ROADMAP.md queue A lists the order in which they come.
+"""
+
+_EXPORTS = {
+    "OpenCLIP": ("perceptor_tpu_torch.models.open_clip", "OpenCLIP"),
+    "CLIP": ("perceptor_tpu_torch.models.clip_alias", "CLIP"),
+    "StableDiffusion": ("perceptor_tpu_torch.models.stable_diffusion", "StableDiffusion"),
+}
+
+_NOT_PORTED = (
+    "VelocityDiffusion", "GuidedDiffusion", "MonsterDiffusion", "DeepImagePrior", "VGG19",
+    "SuperResolution", "MidasDepth", "AdaBinsDepth", "SimulacraAesthetic",
+    "AestheticVisualAssessment", "BLIP", "CLOOB", "SLIP", "LiT", "ResMem", "RuCLIP",
+    "GlideCLIP", "OWLViT", "StyleGANXL", "TransformersOpenAICLIP", "latent_diffusion",
+)
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        module_name, attr = _EXPORTS[name]
+        value = getattr(importlib.import_module(module_name), attr)
+        globals()[name] = value
+        return value
+    if name in _NOT_PORTED:
+        raise AttributeError(
+            f"perceptor_tpu_torch.models.{name} is not ported yet (ROADMAP.md queue A)"
+        )
+    raise AttributeError(f"module 'perceptor_tpu_torch.models' has no attribute {name!r}")

@@ -1,13 +1,21 @@
-"""CLIP ViT image tower (counterpart of perceptor_tpu/models/clip/model.py
-`VisionTransformer` and `CLIP.encode_image`).
+"""CLIP with ViT image tower and text tower (counterpart of
+perceptor_tpu/models/clip/model.py `VisionTransformer`, `TextTransformer`
+and `CLIP`).
 
 Module names follow open_clip (`visual.conv1`, `visual.class_embedding`,
-`visual.transformer.resblocks.{i}.attn.in_proj_weight`, ...), so the state
-dict feeds the JAX package's `models/clip/convert.py from_openclip`.
-Pre-LN transformer with a class token; LayerNorms in fp32 keep the
-residual stream fp32 while every matmul runs in its weight's dtype. The
-patch embedding is a stride = kernel convolution (non-overlapping patches).
-The text tower is not ported yet.
+`visual.transformer.resblocks.{i}.attn.in_proj_weight`, ...,
+`token_embedding.weight`, `positional_embedding`, `transformer.resblocks.{i}`,
+`ln_final`, `text_projection`, `logit_scale`), so the state dict feeds the
+JAX package's `models/clip/convert.py from_openclip`.
+Pre-LN transformers; LayerNorms in fp32 keep the residual stream fp32 while
+every matmul runs in its weight's dtype. The image tower has a class token
+and a stride = kernel convolution as patch embedding (non-overlapping
+patches). The text tower runs under a causal mask, so its attention always
+takes the plain dot-product route (`ops/attention.flash_route`), and pools
+at the end-of-text token, the largest id of each row. Token ids must lie
+in [0, vocab_size): out-of-range ids raise a ValueError (JAX's gather would
+clamp them silently, and a CUDA gather would fault). The ModifiedResNet
+image towers are not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
-from perceptor_tpu_torch.ops.attention import attention
+from perceptor_tpu_torch.ops.attention import attention, causal_mask
 from perceptor_tpu_torch.ops.layers import Conv2d, LayerNorm, Linear
 
 
@@ -114,13 +122,82 @@ class VisionTransformer(nn.Module):
         return (x.to(self.proj.dtype) @ self.proj).float()
 
 
-class CLIP(nn.Module):
-    """The image side of CLIP: `visual` and `encode_image`."""
+def checked_token_ids(tokens, vocab_size: int, device) -> torch.Tensor:
+    """`tokens` as an int64 tensor on `device`; ids outside [0, vocab_size)
+    raise (one host read-back)."""
+    tokens = torch.as_tensor(tokens, device=device).long()
+    if tokens.numel() and (int(tokens.min()) < 0 or int(tokens.max()) >= vocab_size):
+        raise ValueError(
+            f"token ids must lie in [0, {vocab_size}), got "
+            f"[{int(tokens.min())}, {int(tokens.max())}]"
+        )
+    return tokens
+
+
+class TextTransformer(nn.Module):
+    """The text tower under open_clip's top-level names."""
 
     def __init__(self, config: CLIPConfig):
         super().__init__()
         self.config = config
+        self._build_text(config)
+
+    def _build_text(self, config: CLIPConfig) -> None:
+        self.token_embedding = nn.Embedding(config.vocab_size, config.text_width)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(config.context_length, config.text_width)
+        )
+        self.transformer = Transformer(
+            config.text_width, config.text_layers, config.text_heads, config.quick_gelu
+        )
+        self.ln_final = LayerNorm(config.text_width, eps=1e-5)
+        self.text_projection = nn.Parameter(torch.empty(config.text_width, config.embed_dim))
+
+    def encode_text(self, tokens):
+        """tokens (N, S <= context_length) integer ids -> (N, embed) fp32,
+        pooled at each row's largest id (the end-of-text token)."""
+        weight = self.token_embedding.weight
+        tokens = checked_token_ids(tokens, self.config.vocab_size, weight.device)
+        seq = tokens.shape[1]
+        x = self.token_embedding(tokens) + self.positional_embedding[:seq].to(weight.dtype)
+        x = self.transformer(x, causal_mask(seq, device=weight.device))
+        x = self.ln_final(x)
+        pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
+        proj = self.text_projection
+        return (pooled.to(proj.dtype) @ proj).float()
+
+    def forward(self, tokens):
+        return self.encode_text(tokens)
+
+
+class CLIP(TextTransformer):
+    """Both towers and `logit_scale`. As in open_clip the text tower's
+    parameters sit at the top level, beside `visual`."""
+
+    def __init__(self, config: CLIPConfig):
+        nn.Module.__init__(self)
+        self.config = config
         self.visual = VisionTransformer(config)
+        self._build_text(config)
+        self.logit_scale = nn.Parameter(torch.tensor(2.6592))
+
+    def named_parameters(self, prefix: str = "", recurse: bool = True,
+                         remove_duplicate: bool = True):
+        """`visual.*` first, then the text tower and `logit_scale`: a seeded
+        random fill (`core/init.py init_random_`) draws the image tower's
+        weights first, whatever the text tower's size."""
+        named = list(super().named_parameters(prefix, recurse, remove_duplicate))
+        visual = (prefix + "." if prefix else "") + "visual."
+        yield from (item for item in named if item[0].startswith(visual))
+        yield from (item for item in named if not item[0].startswith(visual))
+
+    @property
+    def text(self):
+        """The text tower as a callable, tokens -> features."""
+        return self.encode_text
 
     def encode_image(self, images):
         return self.visual(images)
+
+    def forward(self, images, tokens):
+        return self.encode_image(images), self.encode_text(tokens), self.logit_scale

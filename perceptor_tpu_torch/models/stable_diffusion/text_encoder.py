@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from perceptor_tpu_torch.models.clip.model import Transformer
+from perceptor_tpu_torch.models.clip.model import Transformer, checked_token_ids
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig
 from perceptor_tpu_torch.ops.attention import causal_mask
 from perceptor_tpu_torch.ops.layers import LayerNorm
@@ -34,12 +34,7 @@ class CLIPTextEncoder(nn.Module):
     def forward(self, tokens) -> torch.Tensor:
         """tokens (N, S) integer ids -> hidden states (N, S, width) fp32."""
         weight = self.token_embedding.weight
-        tokens = torch.as_tensor(tokens, device=weight.device).long()
-        if tokens.numel() and (int(tokens.min()) < 0 or int(tokens.max()) >= self.config.vocab_size):
-            raise ValueError(
-                f"token ids must lie in [0, {self.config.vocab_size}), got "
-                f"[{int(tokens.min())}, {int(tokens.max())}]"
-            )
+        tokens = checked_token_ids(tokens, self.config.vocab_size, weight.device)
         seq = tokens.shape[1]
         x = self.token_embedding(tokens) + self.positional_embedding[:seq].to(weight.dtype)
         x = self.transformer(x, causal_mask(seq, device=weight.device))

@@ -98,7 +98,7 @@ def tiny_step():
     step = guided_step.build("tiny", device="cpu", seed=0)
     step.unet.load_state_dict(convert.unet_state_dict_from_jax(unet_params, jsd_config.TINY_UNET))
     step.vae.load_state_dict(convert.vae_state_dict_from_jax(vae_params, jsd_config.TINY_VAE))
-    step.clip.load_state_dict(convert.clip_visual_state_dict_from_jax(clip_params["visual"], clip_cfg))
+    step.clip.load_state_dict(convert.clip_state_dict_from_jax(clip_params, clip_cfg))
     rng = np.random.default_rng(3)
     latents = rng.standard_normal((1, 4, 8, 8)).astype(np.float32)
     context = rng.standard_normal((1, 8, 32)).astype(np.float32)
@@ -145,16 +145,28 @@ def test_tiny_guided_steps_stay_finite():
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax,
-    flax or perceptor_tpu; the text-to-image entry points by name too."""
+    flax, optax or perceptor_tpu; the entry points by name too, the lazily
+    exported ones resolved."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import perceptor_tpu_torch, chip_smoke\n"
         "import perceptor_tpu_torch.models.stable_diffusion.stable_diffusion\n"
         "import perceptor_tpu_torch.models.clip.tokenizer\n"
         "import perceptor_tpu_torch.engine.guidance\n"
+        "for name in ('utils.cache', 'utils.gradients', 'models.open_clip', 'models.clip_alias',\n"
+        "             'losses.interface', 'losses.prompt_bank', 'losses.clip', 'losses.open_clip',\n"
+        "             'losses.smoothness', 'losses.resize', 'losses.spherical_distance',\n"
+        "             'transforms.interface', 'transforms.clamp', 'transforms.dynamic_threshold',\n"
+        "             'transforms.resize_transform', 'transforms.cutouts', 'drawers.interface',\n"
+        "             'drawers.inits', 'drawers.raw', 'drawers.jpeg.codec', 'drawers.jpeg.jpeg'):\n"
+        "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
+        "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
+        "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
+        "drawers.Raw, drawers.JPEG, engine.optimize, engine.run_on_device, transforms.random_cutouts\n"
         "for m in pkgutil.walk_packages(perceptor_tpu_torch.__path__, 'perceptor_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'perceptor_tpu'))\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'flax', 'optax', 'perceptor_tpu'))\n"
         "assert not bad, bad\n"
         "print('HYGIENE_OK')\n"
     )

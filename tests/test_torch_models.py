@@ -86,7 +86,7 @@ def clip_pair():
         jnp.zeros((1, TINY_CLIP.context_length), jnp.int32), seed=2,
     )
     module = CLIP(TINY_CLIP)
-    module.load_state_dict(convert.clip_visual_state_dict_from_jax(params["visual"], TINY_CLIP))
+    module.load_state_dict(convert.clip_state_dict_from_jax(params, TINY_CLIP))
     return params, module.eval()
 
 
