@@ -9,8 +9,10 @@ exits non-zero without a result line:
 
 1. kernels        each CUDA kernel against its plain PyTorch version (fp32
                   arithmetic on the same bf16 inputs) at the three attention
-                  shapes of the 512px guided step, two dq and two dk/dv
-                  launches held bitwise equal there; at the CFG sampling
+                  shapes of the 512px guided step and at the 512px ADM
+                  UNet's site (1, 8, 1024, 64), head-interleaved as its
+                  AttentionBlock passes q, k and v, two dq and two dk/dv
+                  launches held bitwise equal at each; at the CFG sampling
                   step's batch-2 sites (S = 4096 and 1024), strided as the
                   UNet passes them; and off the main path: fp32 inputs,
                   strided batch-2 bf16 inputs (S = 1024 and 768px's 2304),
@@ -61,9 +63,36 @@ exits non-zero without a result line:
                   text-prompted `losses.CLIP` over 16 random cutouts a step,
                   4 steps at 512px: 21 launches of each kernel a step, finite
                   latents and losses, ms per step and peak memory;
-13. timings       each kernel, its plain version and PyTorch's
+13. adm_sample    `GuidedDiffusion("standard").sample` at 512px, batch 1,
+                  full depth: a 10-step DDIM, a 5-step DPM-Solver++(2M) and an
+                  img2img run (from index 600, eta 0.5) from the first
+                  image: exactly 5 forward launches a UNet evaluation and no
+                  backward launch, finite images, seconds per image, ms per
+                  step, peak memory, parameters; one UNet evaluation under
+                  torch.profiler;
+14. adm_guided_sample  `engine.guided_sample` on that model under the
+                  text-prompted `losses.CLIP` over 16 random cutouts a step
+                  (no generator passed: the augment gets the default one), 3
+                  steps from the first image diffused to index 600: 5 / 5 / 5
+                  launches a step, finite images and losses, ms per step,
+                  peak memory;
+15. adm_route_parity  the ADM UNet forward at 512px and its input gradient
+                  through the kernels against the plain attention route and
+                  an fp32 copy, with route_parity's tolerances;
+16. velocity_sample  `VelocityDiffusion("cc12m_1_cfg")` at 256px, full width
+                  and depth, conditioned on the prompt through
+                  `models.CLIP("ViT-B-16")`: 10-step DDIM with correction,
+                  10-step "plms", 5-step "dpm++", a `reverse_sample` of the
+                  DDIM image, and a 3-step `guided_sample` under the text loss
+                  over float (from_t, to_t) pairs: no flash launch (its
+                  attention sites have at most 256 tokens), finite outputs,
+                  seconds per image, ms per UNet evaluation, peak memory; one
+                  UNet evaluation under torch.profiler;
+17. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
-                  forward at the batch-2 sites), beside the card's bound.
+                  forward at the batch-2 sites), beside the card's bound;
+                  launches queue up behind a spin on the device, so a small
+                  kernel is timed at the device's pace, not the host's.
 
 Each phase measures its launches per step and holds them against the one
 table PER_STEP. Then the kernel table as one JSON line (launches of every
@@ -93,6 +122,11 @@ CFG_SITES = (
     ("unet_level0_attn1_cfg", 2, 8, 4096, 40, 5),
     ("unet_level1_attn1_cfg", 2, 8, 1024, 80, 5),
 )
+# the 512px ADM "standard" UNet's flash site: its five attention blocks at
+# downsampling 16 (32 x 32 tokens, 8 heads of 64 channels), q, k and v
+# head-interleaved views of one qkv projection;
+# (site, batch, heads, seq, head_dim, launches per UNet evaluation)
+ADM_SITES = (("adm_ds16_attn", 1, 8, 1024, 64, 5),)
 # The one table of expected launches: each kernel's launches per step of
 # each path, by entry point. The guided step is one UNet evaluation (5
 # self-attentions at level 0, S = 4096, and 5 at level 1, S = 1024) and the
@@ -107,6 +141,13 @@ PER_STEP = {
     "guided_sample_text": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
     # drawer -> CLIP ViT-B/32: 50 image tokens and a masked text tower
     "optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # ADM at 512px: per UNet evaluation (sample), and per guided step, which
+    # is one evaluation forward and backward (CLIP ViT-B/32 launches none)
+    "adm_sample": {"flash_fwd": 5, "flash_dq": 0, "flash_dkv": 0},
+    "adm_guided_sample": {"flash_fwd": 5, "flash_dq": 5, "flash_dkv": 5},
+    # cc12m_1_cfg at 256px: attention at 16 x 16 tokens and below
+    "velocity_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "velocity_guided_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -126,6 +167,25 @@ SAMPLE_RUNS = (
     ("img2img", {"n_steps": 5, "from_index": 600, "eta": 0.5, "n_resample": 1}),
 )
 GUIDED_SAMPLE_STEPS = 2
+# the pixel-space families: ADM "standard" at 512px and the CLIP-conditioned
+# v-diffusion model at 256px, full width and depth, batch 1
+ADM_MODEL = "standard"
+ADM_SAMPLE_RUNS = (
+    ("ddim", {"n_steps": 10}),
+    ("dpm++", {"n_steps": 5, "method": "dpm++"}),
+    ("img2img", {"n_steps": 5, "from_index": 600, "eta": 0.5}),
+)
+ADM_GUIDED_STEPS = 3
+ADM_GUIDED_FROM_INDEX = 600
+ADM_GUIDED_CUTOUTS = 16
+VELOCITY_MODEL = "cc12m_1_cfg"
+VELOCITY_SAMPLE_RUNS = (
+    ("ddim_correction", {"n_steps": 10, "correction": True}),
+    ("plms", {"n_steps": 10, "method": "plms"}),
+    ("dpm++", {"n_steps": 5, "method": "dpm++"}),
+)
+VELOCITY_REVERSE_STEPS = 10
+VELOCITY_GUIDED_STEPS = 3
 # the text-prompted optimization phases (CLIP ViT-B/32, openai config)
 CLIP_NAME = "ViT-B-32"
 TEXT_PROMPTS = (PROMPT, "an oil painting of a lighthouse at dusk")
@@ -158,18 +218,19 @@ JPEG_ROUND_TRIP_MEAN = 0.1
 KERNEL_RTOL = 2e-2
 LSE_ATOL = 1e-3
 # Off the main path: fp32 inputs (the kernels' scalar path: the plain
-# version's fp32 arithmetic up to summation order, so 1e-4) and bf16 inputs
-# (KERNEL_RTOL), all viewed from (B, S, H * D) projections as the UNet
-# passes them: batch 2 at S = 1024 and at 768px's S = 2304, the VAE's
-# d = 512 at S = 1024, and Sk of a single K/V tile of the three bf16
-# kernels (64 keys at d = 40, 32 at d = 512).
+# version's fp32 arithmetic up to summation order, so 1e-4; d = 64 too) and
+# bf16 inputs (KERNEL_RTOL), all viewed from (B, S, H * D) projections as the
+# SD UNet passes them: batch 2 at S = 1024 (d = 40, 80 and ADM's 64) and at
+# 768px's S = 2304, the VAE's d = 512 at S = 1024, and Sk of a single K/V
+# tile of the three bf16 kernels (64 keys at d = 40, 32 at d = 512).
 # (dtype, batch, heads, seq_q, seq_k, head_dim)
 FP32_RTOL = 1e-4
 EXTRA_CASES = (
     ("float32", 1, 2, 256, 256, 40), ("float32", 1, 2, 256, 256, 80),
-    ("float32", 1, 1, 256, 256, 512),
+    ("float32", 1, 1, 256, 256, 512), ("float32", 1, 2, 256, 256, 64),
     ("bfloat16", 2, 2, 1024, 1024, 40), ("bfloat16", 2, 2, 1024, 1024, 80),
     ("bfloat16", 2, 2, 2304, 2304, 40), ("bfloat16", 2, 2, 2304, 2304, 80),
+    ("bfloat16", 2, 2, 1024, 1024, 64),
     ("bfloat16", 1, 1, 1024, 1024, 512),
     ("bfloat16", 1, 2, 256, 64, 40), ("bfloat16", 1, 1, 128, 32, 512),
 )
@@ -227,13 +288,45 @@ def site_work(kernel: str, b: int, h: int, s: int, d: int):
     return flops, nbytes
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+_SPIN_CYCLES_PER_MS = None
+
+
+def spin_cycles_per_ms() -> float:
+    """Cycles of `torch.cuda._sleep` (a kernel that spins on the device) per
+    millisecond, measured once."""
+    global _SPIN_CYCLES_PER_MS
     import torch
 
+    if _SPIN_CYCLES_PER_MS is None:
+        cycles = 10_000_000
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS = cycles / start.elapsed_time(end)
+    return _SPIN_CYCLES_PER_MS
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of `fn`, by CUDA events around `reps` calls. A
+    wrapper call costs the host tens of microseconds, more than a small
+    kernel runs, and events around calls enqueued at the host's pace would
+    time the host. So the device first spins for twice the time the host
+    needs to enqueue all the calls (its pace is taken from the warm-up, at
+    most 200 ms of spin): the timed calls queue up behind the spin and run
+    back to back."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / warmup
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(spin_cycles_per_ms() * min(2.0 * reps * host_ms, 200.0)))
     start.record()
     for _ in range(reps):
         fn()
@@ -252,14 +345,30 @@ def site_inputs(b, h, s, d, seed):
     ]
 
 
+def adm_site_inputs(b, h, s, d, seed):
+    """q, k, v, do as the ADM `AttentionBlock` hands them over: q, k and v
+    are views of one (B, S, H * 3 * D) qkv projection whose channels are
+    [head0(q|k|v), head1(q|k|v), ...]; do is the gradient of the
+    (B, S, H * D) merge, viewed (B, H, S, D)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, h * 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv.view(b, s, h, 3, d)[:, :, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((b, s, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    return [q, k, v, do.view(b, s, h, d).transpose(1, 2)]
+
+
 def phase_kernels(fa) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main paths' shapes."""
     import torch
 
     errors = {name: 0.0 for name in REPLACES}
     sites = []
-    for i, (site, b, h, s, d, _) in enumerate(SITES):
-        q, k, v, do = site_inputs(b, h, s, d, seed=i)
+    site_list = [(site, site_inputs) for site in SITES]
+    site_list += [(site, adm_site_inputs) for site in ADM_SITES]
+    for i, ((site, b, h, s, d, _), make_inputs) in enumerate(site_list):
+        q, k, v, do = make_inputs(b, h, s, d, seed=i)
         scale = 1.0 / math.sqrt(d)
         qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
         o_ref, lse_ref = fa.flash_forward_plain(qf, kf, vf, scale)
@@ -282,7 +391,7 @@ def phase_kernels(fa) -> dict:
             "o": ("flash_fwd", o, o_ref), "dq": ("flash_dq", dq, dq_ref),
             "dk": ("flash_dkv", dk, dk_ref), "dv": ("flash_dkv", dv, dv_ref),
         }
-        record = {"site": site, "shape": [b, h, s, d]}
+        record = {"site": site, "shape": [b, h, s, d], "q_strides": list(q.stride())}
         for out_name, (kernel, got, ref) in checks.items():
             err = float((got.float() - ref).abs().max())
             tol = KERNEL_RTOL * float(ref.abs().max())
@@ -358,7 +467,7 @@ def phase_kernel_info(fa, library) -> None:
     info = [
         {"kernel": name, "site": site, "head_dim": d,
          **fa.kernel_info(name.removeprefix("flash_"), d, torch.bfloat16)}
-        for site, _, _, _, d, _ in SITES for name in REPLACES
+        for site, _, _, _, d, _ in SITES + ADM_SITES for name in REPLACES
     ]
     ptxas = []
     report = library.with_suffix(".ptxas.txt")
@@ -439,8 +548,6 @@ def _rel_l2(a, b) -> float:
 def phase_route_parity(step) -> None:
     """Kernel route vs plain route at full width, same weights and inputs,
     both also against an fp32 copy of each model."""
-    import copy
-
     import torch
 
     latents, context = step.initial_inputs()
@@ -473,25 +580,39 @@ def phase_route_parity(step) -> None:
         ("unet_cfg", step.unet, unet_cfg_out, ("out",)),
         ("vae_decode", step.vae, vae_decode, ("images",)),
     ):
-        kernel, plain = run(bf16_model, None), run(bf16_model, False)
-        reference = run(copy.deepcopy(bf16_model).float(), False)
-        _set_route(bf16_model, None)
-        for i, out_name in enumerate(outputs):
-            tol = ROUTE_GRAD_RTOL if out_name == "latent_grad" else ROUTE_FWD_RTOL
-            rec = {
-                "kernel_vs_plain": _rel_l2(kernel[i], plain[i]), "tol": tol,
-                "kernel_vs_fp32": _rel_l2(kernel[i], reference[i]),
-                "plain_vs_fp32": _rel_l2(plain[i], reference[i]),
-            }
-            key = f"{name}_{out_name}"
-            if not rec["kernel_vs_plain"] <= tol:
-                raise AssertionError(f"route parity {key}: {rec}")
-            if not rec["kernel_vs_fp32"] <= ROUTE_MARGIN * rec["plain_vs_fp32"] + 1e-3:
-                raise AssertionError(f"kernel route less accurate than the plain one, {key}: {rec}")
-            results[key] = rec
-        del reference
-        torch.cuda.empty_cache()
+        results.update(compare_routes(name, bf16_model, run, outputs))
     emit({"phase": "route_parity", "ok": True, "metric": "relative L2 error", **results})
+
+
+def compare_routes(name, bf16_model, run, outputs) -> dict:
+    """`run(model, use_flash)` through the kernels, through the plain
+    attention route and on an fp32 copy of the model: per output, the
+    relative L2 errors, held to ROUTE_FWD_RTOL (ROUTE_GRAD_RTOL for a
+    gradient) between the routes and to ROUTE_MARGIN against fp32."""
+    import copy
+
+    import torch
+
+    kernel, plain = run(bf16_model, None), run(bf16_model, False)
+    reference = run(copy.deepcopy(bf16_model).float(), False)
+    _set_route(bf16_model, None)
+    results = {}
+    for i, out_name in enumerate(outputs):
+        tol = ROUTE_GRAD_RTOL if out_name.endswith("_grad") else ROUTE_FWD_RTOL
+        rec = {
+            "kernel_vs_plain": _rel_l2(kernel[i], plain[i]), "tol": tol,
+            "kernel_vs_fp32": _rel_l2(kernel[i], reference[i]),
+            "plain_vs_fp32": _rel_l2(plain[i], reference[i]),
+        }
+        key = f"{name}_{out_name}"
+        if not rec["kernel_vs_plain"] <= tol:
+            raise AssertionError(f"route parity {key}: {rec}")
+        if not rec["kernel_vs_fp32"] <= ROUTE_MARGIN * rec["plain_vs_fp32"] + 1e-3:
+            raise AssertionError(f"kernel route less accurate than the plain one, {key}: {rec}")
+        results[key] = rec
+    del reference
+    torch.cuda.empty_cache()
+    return results
 
 
 def phase_profile(step) -> dict:
@@ -995,14 +1116,279 @@ def phase_guided_sample_text(fa, sd):
     return launches, measured
 
 
+def phase_adm_sample(fa, gd):
+    """`GuidedDiffusion.sample` at 512px, batch 1, full depth: the runs of
+    ADM_SAMPLE_RUNS, img2img from the first run's image. Per run: the
+    schedule's k, the UNet evaluations (k + 1: the last gives the denoised
+    images), flash launches per evaluation (asserted: 5 forward, no
+    backward), the image (asserted finite, (1, 3, 512, 512); its range is
+    reported: like the JAX sampler this one does not clamp), seconds per
+    image, ms per step and per evaluation, peak memory. Returns (launches,
+    launches per UNet evaluation, the first image)."""
+    import torch
+
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    gd.sample(n_steps=2, size=size)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    totals = {name: 0 for name in REPLACES}
+    runs, first_image = [], None
+    for name, options in ADM_SAMPLE_RUNS:
+        if name == "img2img":
+            options = {**options, "init_images": first_image}
+        k = len(gd.schedule_indices(options["n_steps"], from_index=options.get("from_index", 999),
+                                    rho=3.0))
+        timer = PartTimer(fa, gd, ("predicted_noise",))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        images = gd.sample(n_images=1, size=size,
+                           generator=torch.Generator(device="cuda").manual_seed(0), **options)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        timer.remove()
+        evals = len(timer.calls["predicted_noise"])
+        if evals != k + 1:
+            raise AssertionError(f"adm_sample {name}: {evals} UNet evaluations for k = {k}")
+        if launches != timer.launches("predicted_noise"):
+            raise AssertionError(f"adm_sample {name}: launches outside the UNet: {launches}")
+        measured = per_step(launches, evals)
+        check_per_step("adm_sample", measured)
+        if images.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not torch.isfinite(images).all():
+            raise AssertionError(f"adm_sample {name}: images {tuple(images.shape)} not finite")
+        runs.append({
+            "run": name, "options": {k_: v for k_, v in options.items() if k_ != "init_images"},
+            "k": k, "unet_evals": evals, "launches": launches, "launches_per_unet_eval": measured,
+            "images_shape": list(images.shape), "image_mean": float(images.mean()),
+            "image_std": float(images.std()), "image_min": float(images.min()),
+            "image_max": float(images.max()), "s_per_image": wall,
+            "ms_per_sampling_step": start.elapsed_time(end) / k,
+            "ms_per_unet_eval": timer.ms("predicted_noise") / evals,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        })
+        for kernel in totals:
+            totals[kernel] += launches[kernel]
+        if first_image is None:
+            first_image = images
+    # one UNet evaluation under the profiler: device ms and the busy share
+    diffused = gd.diffuse_images(first_image.clamp(0, 1), ADM_GUIDED_FROM_INDEX,
+                                 generator=torch.Generator(device="cuda").manual_seed(9))
+
+    def evaluate():
+        with torch.no_grad():
+            gd.predicted_noise(diffused, ADM_GUIDED_FROM_INDEX)
+
+    emit({"phase": "adm_sample", "ok": True, "model": ADM_MODEL, "image_size": IMAGE_SIZE,
+          "parameters": sum(p.numel() for p in gd.module.parameters()), "runs": runs,
+          "unet_eval_profile": profile_record(evaluate)})
+    return totals, measured, first_image
+
+
+def phase_adm_guided_sample(fa, gd, image):
+    """`engine.guided_sample` on the ADM model at 512px under the
+    text-prompted CLIP loss over 16 random cutouts a step, from `image`
+    diffused to ADM_GUIDED_FROM_INDEX; no generator is passed, so the
+    augment draws from the default one. Returns (launches, launches per
+    step)."""
+    import torch
+
+    from perceptor_tpu_torch.engine import guided_sample
+    from perceptor_tpu_torch.transforms import random_cutouts
+
+    pairs = gd.schedule_indices(ADM_GUIDED_STEPS, from_index=ADM_GUIDED_FROM_INDEX)
+    diffused = gd.diffuse_images(image.clamp(0, 1), int(pairs[0, 0]),
+                                 generator=torch.Generator(device="cuda").manual_seed(6))
+    shapes = set()
+
+    def augment(generator, images):
+        cutouts = random_cutouts(images, generator, ADM_GUIDED_CUTOUTS)
+        shapes.add(tuple(cutouts.shape))
+        return cutouts
+
+    objectives = [text_loss()]
+    options = dict(guidance_scale=0.5, image_augment=augment)
+    guided_sample(gd, objectives, diffused, pairs[:1], **options)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out, losses = guided_sample(gd, objectives, diffused, pairs, **options)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    k = len(pairs)
+    measured = per_step(launches, k)
+    check_per_step("adm_guided_sample", measured)
+    if out.shape != diffused.shape or not (torch.isfinite(out).all() and torch.isfinite(losses).all()):
+        raise AssertionError("adm_guided_sample: non-finite images or losses")
+    if shapes != {(ADM_GUIDED_CUTOUTS, 3, 224, 224)}:
+        raise AssertionError(f"adm_guided_sample: cutouts {sorted(shapes)}")
+    emit({
+        "phase": "adm_guided_sample", "ok": True, "model": ADM_MODEL, "steps": k,
+        "pairs": pairs.tolist(), "prompt": PROMPT, "n_cutouts": ADM_GUIDED_CUTOUTS,
+        "guidance_scale": 0.5, "losses": losses.tolist(), "images_shape": list(out.shape),
+        "ms_per_step": start.elapsed_time(end) / k, "wall_s": wall,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": measured,
+    })
+    return launches, measured
+
+
+def phase_adm_route_parity(gd) -> None:
+    """The ADM UNet forward at 512px and its input gradient: kernel route vs
+    plain route, both also against an fp32 copy."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    xs = torch.randn((1, 3, IMAGE_SIZE, IMAGE_SIZE), generator=gen, device="cuda")
+    probe = torch.randn((1, 6, IMAGE_SIZE, IMAGE_SIZE), generator=gen, device="cuda")
+    timesteps = torch.tensor([600.0], device="cuda")
+
+    def unet_out_grad(unet, use_flash):
+        _set_route(unet, use_flash)
+        x = xs.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = unet(x, timesteps)
+            (grad,) = torch.autograd.grad((out * probe).sum(), x)
+        return out.detach(), grad
+
+    torch.cuda.reset_peak_memory_stats()
+    results = compare_routes("adm_unet", gd.module, unet_out_grad, ("out", "input_grad"))
+    emit({"phase": "adm_route_parity", "ok": True, "metric": "relative L2 error",
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), **results})
+
+
+def phase_velocity_sample(fa):
+    """`VelocityDiffusion("cc12m_1_cfg")` at 256px, batch 1, conditioned on
+    the prompt: the runs of VELOCITY_SAMPLE_RUNS, a `reverse_sample` of the
+    first image and a 3-step `guided_sample` under the text loss over float
+    (from_t, to_t) pairs. No flash kernel may launch. Returns ({path:
+    launches}, {path: launches per step})."""
+    import torch
+
+    from perceptor_tpu_torch.engine import guided_sample
+    from perceptor_tpu_torch.models.velocity_diffusion import VelocityDiffusion
+
+    t0 = time.perf_counter()
+    vd = VelocityDiffusion(VELOCITY_MODEL, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    cond = vd.conditioning(texts=[PROMPT])
+    end.record()
+    torch.cuda.synchronize()
+    conditioning_ms = start.elapsed_time(end)
+    if tuple(cond.shape) != (1, 1, vd.config.mapping.clip_dim) or not torch.isfinite(cond).all():
+        raise AssertionError(f"velocity_sample: conditioning {tuple(cond.shape)}")
+    shape = (1, *vd.shape)
+    vd.sample(n_steps=2, conditioning=cond)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        """fn() with the UNet evaluations counted and timed: (result,
+        record)."""
+        timer = PartTimer(fa, vd, ("velocities",))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timer.remove()
+        evals = len(timer.calls["velocities"])
+        return result, {
+            "unet_evals": evals, "wall_s": wall, "ms": start.elapsed_time(end),
+            "ms_per_unet_eval": timer.ms("velocities") / evals,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+
+    fa.reset_launches()
+    runs, first_image = [], None
+    for name, options in VELOCITY_SAMPLE_RUNS:
+        images, record = timed(lambda: vd.sample(
+            n_images=1, conditioning=cond,
+            generator=torch.Generator(device="cuda").manual_seed(0), **options))
+        if images.shape != shape or not torch.isfinite(images).all():
+            raise AssertionError(f"velocity_sample {name}: images {tuple(images.shape)} not finite")
+        runs.append({
+            "run": name, "options": options, **record, "s_per_image": record["wall_s"],
+            "ms_per_sampling_step": record["ms"] / options["n_steps"],
+            "images_shape": list(images.shape), "image_mean": float(images.mean()),
+            "image_std": float(images.std()), "image_min": float(images.min()),
+            "image_max": float(images.max()),
+        })
+        if first_image is None:
+            first_image = images
+    reversed_images, record = timed(lambda: vd.reverse_sample(
+        first_image.clamp(0, 1), n_steps=VELOCITY_REVERSE_STEPS, conditioning=cond))
+    if reversed_images.shape != shape or not torch.isfinite(reversed_images).all():
+        raise AssertionError("velocity_sample: reverse_sample not finite")
+    runs.append({"run": "reverse_sample", "options": {"n_steps": VELOCITY_REVERSE_STEPS}, **record,
+                 "image_std": float(reversed_images.std())})
+    launches = {"velocity_sample": dict(fa.LAUNCHES)}
+    total_evals = sum(r["unet_evals"] for r in runs)
+    measured = {"velocity_sample": per_step(launches["velocity_sample"], total_evals)}
+    check_per_step("velocity_sample", measured["velocity_sample"])
+
+    # guided sampling over float (from_t, to_t) pairs
+    pairs = vd.schedule_ts(VELOCITY_GUIDED_STEPS)
+    diffused = vd.random_diffused(shape, torch.Generator(device="cuda").manual_seed(7))
+    objectives = [text_loss()]
+    options = dict(conditioning=cond, guidance_scale=0.5)
+    guided_sample(vd, objectives, diffused, pairs[:1], **options)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    (out, losses), record = timed(lambda: guided_sample(vd, objectives, diffused, pairs, **options))
+    launches["velocity_guided_sample"] = dict(fa.LAUNCHES)
+    measured["velocity_guided_sample"] = per_step(launches["velocity_guided_sample"], len(pairs))
+    check_per_step("velocity_guided_sample", measured["velocity_guided_sample"])
+    if out.shape != shape or not (torch.isfinite(out).all() and torch.isfinite(losses).all()):
+        raise AssertionError("velocity guided_sample: non-finite images or losses")
+
+    def evaluate():
+        with torch.no_grad():
+            vd.velocities(diffused, 0.5, cond)
+
+    emit({
+        "phase": "velocity_sample", "ok": True, "model": VELOCITY_MODEL,
+        "image_size": list(vd.shape[1:]), "build_s": build_s,
+        "parameters": sum(p.numel() for p in vd.module.parameters()),
+        "clip_model": vd.config.mapping.clip_model, "conditioning_ms": conditioning_ms,
+        "prompt": PROMPT, "runs": runs,
+        "guided_sample": {
+            "steps": len(pairs), "pairs": pairs.tolist(), "guidance_scale": 0.5,
+            "losses": losses.tolist(), "ms_per_step": record["ms"] / len(pairs), **record,
+        },
+        "flash_launches": launches, "unet_eval_profile": profile_record(evaluate),
+    })
+    return launches, measured
+
+
 def phase_timings(fa, peak_flops, peak_bw) -> list:
     """Kernel, plain version and SDPA per site, and the bound."""
     import torch
     import torch.nn.functional as F
 
     rows = []
-    for i, (site, b, h, s, d, count) in enumerate(SITES):
-        q, k, v, do = site_inputs(b, h, s, d, seed=100 + i)
+    site_list = [(site, site_inputs, "guided_step") for site in SITES] + [
+        (site, adm_site_inputs, "adm_guided_sample") for site in ADM_SITES]
+    for i, ((site, b, h, s, d, count), make_inputs, path) in enumerate(site_list):
+        q, k, v, do = make_inputs(b, h, s, d, seed=100 + i)
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.flash_forward(q, k, v, scale)
         delta = (o.float() * do.float()).sum(-1)
@@ -1026,7 +1412,7 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
             flops, nbytes = site_work(name, b, h, s, d)
             t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
             rows.append({
-                "kernel": name, "site": site, "path": "guided_step", "shape": [b, h, s, d],
+                "kernel": name, "site": site, "path": path, "shape": [b, h, s, d],
                 "per_step": count, "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, reps=5),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1077,6 +1463,8 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
             return sum(r[key] * (weights or {}).get(r["site"], r["per_step"]) for r in mine)
 
         sampling = [r for r in rows if r["kernel"] == name and r["path"] == "sample"]
+        adm = sum(r["ms"] * r["per_step"] for r in rows
+                  if r["kernel"] == name and r["path"] == "adm_guided_sample")
         t_ops = sum(r["flops"] * r["per_step"] for r in mine)
         t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
         table.append({
@@ -1097,6 +1485,9 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
                 "sample": sum(r["ms"] * r["per_step"] for r in sampling),
                 "guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 "guided_sample_text": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
+                # per UNet evaluation (forward only) and per guided step
+                "adm_sample": adm if name == "flash_fwd" else 0.0,
+                "adm_guided_sample": adm,
             },
         })
     return table
@@ -1109,6 +1500,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from perceptor_tpu_torch import guided_step
+    from perceptor_tpu_torch.models.guided_diffusion import GuidedDiffusion
     from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
     from perceptor_tpu_torch.ops import flash_attention_kernel as fa
 
@@ -1154,7 +1546,24 @@ def main() -> int:
     phase_optimize_jpeg(fa)
     sd = StableDiffusion(MODEL, device="cuda", seed=0)
     launches["guided_sample_text"], measured["guided_sample_text"] = phase_guided_sample_text(fa, sd)
-    del sd, clip
+    del sd
+    torch.cuda.empty_cache()
+    # the pixel-space families; the text loss still shares the held tower
+    t0 = time.perf_counter()
+    gd = GuidedDiffusion(ADM_MODEL, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    emit({"phase": "adm_build", "ok": True, "model": ADM_MODEL,
+          "seconds": time.perf_counter() - t0})
+    launches["adm_sample"], measured["adm_sample"], adm_image = phase_adm_sample(fa, gd)
+    launches["adm_guided_sample"], measured["adm_guided_sample"] = phase_adm_guided_sample(
+        fa, gd, adm_image)
+    phase_adm_route_parity(gd)
+    del gd
+    torch.cuda.empty_cache()
+    velocity_launches, velocity_measured = phase_velocity_sample(fa)
+    launches.update(velocity_launches)
+    measured.update(velocity_measured)
+    del clip
     torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
 

@@ -3,26 +3,32 @@
 Each function takes the JAX package's flax param tree as numpy arrays and
 returns a state_dict for the port's module, inverting the rules of the JAX
 converters (perceptor_tpu/models/stable_diffusion/convert.py,
-perceptor_tpu/models/clip/convert.py):
+perceptor_tpu/models/clip/convert.py,
+perceptor_tpu/models/guided_diffusion/convert.py,
+perceptor_tpu/models/velocity_diffusion/convert.py):
 
     conv   (kh, kw, I, O) -> (O, I, kh, kw)
-    dense  (I, O)         -> (O, I)
+    dense  (I, O)         -> (O, I)      (ADM's 1x1 conv1d: (O, I, 1))
     norm   scale          -> weight
 
-The port's keys are diffusers' (UNet, VAE) and open_clip's (CLIP), so
-the JAX package's own `unet_from_diffusers`, `vae_from_diffusers` and
-`from_openclip` map these state_dicts back to the same trees.
+The port's keys are diffusers' (UNet, VAE), open_clip's (CLIP) and OpenAI
+guided_diffusion's (ADM), so the JAX package's own `unet_from_diffusers`,
+`vae_from_diffusers`, `from_openclip` and the two `from_torch` map these
+state_dicts back to the same trees.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
+from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
+from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -251,3 +257,83 @@ def stable_diffusion_state_dicts_from_jax(
         "vae": vae_state_dict_from_jax(params["vae"], vae_cfg),
         "text_encoder": text_encoder_state_dict_from_jax(params["text_encoder"], text_cfg),
     }
+
+
+def _conv1d(p: Mapping, prefix: str, sd: StateDict) -> None:
+    """A flax dense kernel (I, O) -> a kernel-size-1 conv1d weight (O, I, 1)."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+_ADM_BLOCK = re.compile(r"(input_blocks|output_blocks|middle_block)_(?:(\d+)_)?(\d+)(_op|_conv)?$")
+
+
+def adm_state_dict_from_jax(params: Mapping, cfg: ADMConfig) -> StateDict:
+    """Flax `ADMUNet` params -> state_dict of the port's (OpenAI-named)
+    ADMUNet; the inverse of the JAX package's `guided_diffusion/convert.py
+    from_torch`."""
+    if cfg.spatial_transformer:
+        raise NotImplementedError("the spatial_transformer ADM UNet is not ported")
+    sd: StateDict = {}
+    for name, p in params.items():
+        if name in ("time_embed_0", "time_embed_2"):
+            _linear(p, f"time_embed.{name[-1]}", sd)
+        elif name == "out_norm":
+            _norm(p, "out.0", sd)
+        elif name == "out_conv":
+            _conv(p, "out.2", sd)
+        elif name == "input_blocks_0_0":
+            _conv(p, "input_blocks.0.0", sd)
+        else:
+            match = _ADM_BLOCK.match(name)
+            if not match:
+                raise ValueError(f"unrecognized ADM module: {name}")
+            group, index, sub, resampler = match.groups()
+            prefix = ".".join(x for x in (group, index, sub) if x is not None)
+            if resampler:  # Downsample `op` / Upsample `conv`
+                _conv(p, f"{prefix}.{resampler[1:]}", sd)
+            elif "qkv" in p:
+                _norm(p["norm"], f"{prefix}.norm", sd)
+                _conv1d(p["qkv"], f"{prefix}.qkv", sd)
+                _conv1d(p["proj_out"], f"{prefix}.proj_out", sd)
+            else:
+                _norm(p["norm1"], f"{prefix}.in_layers.0", sd)
+                _conv(p["conv1"], f"{prefix}.in_layers.2", sd)
+                _linear(p["emb_proj"], f"{prefix}.emb_layers.1", sd)
+                _norm(p["norm2"], f"{prefix}.out_layers.0", sd)
+                _conv(p["conv2"], f"{prefix}.out_layers.3", sd)
+                if "skip" in p:
+                    _conv(p["skip"], f"{prefix}.skip_connection", sd)
+    return sd
+
+
+def vnet_state_dict_from_jax(params: Mapping, cfg: VNetConfig) -> StateDict:
+    """Flax `VDiffusionUNet` params -> state_dict of the port's
+    VDiffusionUNet (the JAX module names under `blocks.`, each block's
+    layers under `main` and `skip`); the inverse of the JAX package's
+    `velocity_diffusion/convert.py from_torch`."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        if name in ("timestep_embed", "mapping_timestep_embed"):
+            sd[f"{name}.weight"] = _t(p["weight"])
+        elif name in ("mapping_0", "mapping_1"):
+            _linear(p["fc1"], f"{name}.main.fc1", sd)
+            _linear(p["fc2"], f"{name}.main.fc2", sd)
+            if "skip" in p:
+                _linear(p["skip"], f"{name}.skip", sd)
+        elif name.endswith("_attn"):
+            prefix = f"blocks.{name}"
+            if cfg.attn_norm:
+                _norm(p["norm"], f"{prefix}.norm", sd)
+            _conv(p["qkv_proj"], f"{prefix}.qkv_proj", sd)
+            _conv(p["out_proj"], f"{prefix}.out_proj", sd)
+        else:
+            prefix = f"blocks.{name}"
+            for layer, lp in p.items():
+                if layer == "skip":
+                    _conv(lp, f"{prefix}.skip", sd)
+                elif layer.endswith("_mod"):
+                    _linear(lp, f"{prefix}.main.{layer}", sd)
+                else:
+                    _conv(lp, f"{prefix}.main.{layer}", sd)
+    return sd

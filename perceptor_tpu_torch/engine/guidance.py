@@ -172,7 +172,9 @@ def guided_sample(
 ):
     """Loss-guided DDIM sampling from `initial_latents` over `pairs`, an
     (n_steps, 2) array of (from, to) schedule indices (e.g.
-    `model.schedule_indices(...)`). Each loss maps images to a scalar.
+    `model.schedule_indices(...)`) or, for a continuous-time model, of fp32
+    times (`model.schedule_ts(...)`). `model.predictions(x, from, conditioning)`
+    gives the predictions. Each loss maps images to a scalar.
 
     - ``eta``: stochastic DDIM, noise from ``generator``.
     - ``correction``: after stepping, re-evaluate the model at the new
@@ -192,7 +194,8 @@ def guided_sample(
     - ``loss_images``: "decoded" (the VAE decode of the denoised latents)
       or "preview" (``model.preview_images_fn``, no VAE).
     - ``image_augment``: ``(generator, images) -> images``, applied before
-      the losses each step.
+      the losses each step; without a ``generator`` it gets one seeded 0 on
+      the latents' device.
 
     Returns (final diffused latents, per-step total loss tensor)."""
     if threshold not in THRESHOLDS:
@@ -207,8 +210,12 @@ def guided_sample(
     if (eta > 0.0 or n_resample) and generator is None:
         raise ValueError("eta > 0 and n_resample draw noise: pass generator=")
     device = initial_latents.device
+    if generator is None:  # only the augment draws from it
+        generator = torch.Generator(device=device).manual_seed(0)
     weights = _loss_weights(loss_weights, len(losses), device)
-    pairs = torch.as_tensor(np.asarray(pairs), device=device).long()
+    # integer (schedule index) pairs stay integer, float (continuous t) pairs fp32
+    pairs = torch.as_tensor(np.asarray(pairs), device=device)
+    pairs = pairs.float() if pairs.is_floating_point() else pairs.long()
 
     def make_predictions(latents, from_idx):
         if uncond_conditioning is not None:
@@ -238,10 +245,7 @@ def guided_sample(
             values = torch.stack([loss(images).float().reshape(()) for loss in losses])
             total = (values * weights).sum()
             (grad,) = torch.autograd.grad(total, x)
-        predictions = predictions.replace(
-            from_diffused_latents=latents.detach(),
-            predicted_noise=predictions.predicted_noise.detach(),
-        )
+        predictions = predictions.detached(latents.detach())
         guided = predictions.guided(grad, guidance_scale, clamp_value=clamp_value)
         return apply_threshold(guided), total.detach()
 

@@ -162,11 +162,9 @@ def build(config: str = "sd-v1-512", device="cuda", seed: int = 0) -> GuidedStep
     gen = torch.Generator(device=device).manual_seed(seed)
     unet = random_module(UNet, cfg.unet, device, gen, cfg.dtype)
     vae = random_module(AutoencoderKL, cfg.vae, device, gen, cfg.dtype)
-    # the wrapper continues the generator's stream. It is built past the
-    # memoization (`__wrapped__` is the class itself): the cache keys on the
-    # text of the arguments, and a generator's text is its address, which a
-    # later generator can reuse
-    clip = OpenCLIP.__wrapped__(
+    # the wrapper continues the generator's stream (a call with a generator
+    # is not memoized)
+    clip = OpenCLIP(
         "guided-step", "random", precision=None if cfg.dtype == COMPUTE_DTYPE else "fp32",
         config=cfg.clip, device=device, seed=gen,
     )

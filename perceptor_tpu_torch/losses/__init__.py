@@ -13,13 +13,13 @@ from perceptor_tpu_torch.losses.spherical_distance import SphericalDistance
 _LAZY = {
     "CLIP": ("perceptor_tpu_torch.losses.clip", "CLIP"),
     "OpenCLIP": ("perceptor_tpu_torch.losses.open_clip", "OpenCLIP"),
+    "VelocityDiffusion": ("perceptor_tpu_torch.losses.velocity_diffusion", "VelocityDiffusion"),
 }
 
 _NOT_PORTED = (
     "BLIP", "CLOOB", "SLIP", "RuCLIP", "LiT", "OWLViT", "StyleTransfer", "LPIPS",
     "Memorability", "MidasDepth", "SimulacraAesthetic", "AestheticVisualAssessment",
-    "SuperResolution", "SuperResolutionDiscriminator", "VelocityDiffusion",
-    "TransformersOpenAICLIP",
+    "SuperResolution", "SuperResolutionDiscriminator", "TransformersOpenAICLIP",
 )
 
 __all__ = ["LossInterface", "PromptBankLoss", "Smoothness", "Resize", "SphericalDistance"] + list(

@@ -12,12 +12,14 @@ _TEXTOFF_PATH = os.path.join(os.path.dirname(__file__), "vectors", "textoff.json
 
 
 class CLIP(PromptBankLoss):
-    def __init__(self, name="ViT-B-32", precision=None, **kwargs):
+    def __init__(self, name="ViT-B-32", precision=None, jit=None, **kwargs):
         """
         Args:
             name: CLIP model name (ViT-B-32, ViT-B-16, ViT-L-14, ViT-L-14-336, ...)
+            jit: accepted for callers of the JAX package's signature and dropped
             kwargs: `config`, `tokenizer`, `device`, `seed` of `models.OpenCLIP`
         """
+        del jit
         multiplier = 0.01 if name in ("ViT-L-14", "ViT-L-14-336") else 1.0
         super().__init__(models.CLIP(name, precision=precision, **kwargs), multiplier=multiplier)
         self.name = name

@@ -9,10 +9,12 @@ _EXPORTS = {
     "OpenCLIP": ("perceptor_tpu_torch.models.open_clip", "OpenCLIP"),
     "CLIP": ("perceptor_tpu_torch.models.clip_alias", "CLIP"),
     "StableDiffusion": ("perceptor_tpu_torch.models.stable_diffusion", "StableDiffusion"),
+    "GuidedDiffusion": ("perceptor_tpu_torch.models.guided_diffusion", "GuidedDiffusion"),
+    "VelocityDiffusion": ("perceptor_tpu_torch.models.velocity_diffusion", "VelocityDiffusion"),
 }
 
 _NOT_PORTED = (
-    "VelocityDiffusion", "GuidedDiffusion", "MonsterDiffusion", "DeepImagePrior", "VGG19",
+    "MonsterDiffusion", "DeepImagePrior", "VGG19",
     "SuperResolution", "MidasDepth", "AdaBinsDepth", "SimulacraAesthetic",
     "AestheticVisualAssessment", "BLIP", "CLOOB", "SLIP", "LiT", "ResMem", "RuCLIP",
     "GlideCLIP", "OWLViT", "StyleGANXL", "TransformersOpenAICLIP", "latent_diffusion",

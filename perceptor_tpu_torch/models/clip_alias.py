@@ -19,11 +19,14 @@ _QUICKGELU_FIXUP = {
 }
 
 
-def CLIP(name: str = "ViT-B-32", precision=None, **kwargs):
+def CLIP(name: str = "ViT-B-32", precision=None, jit=None, **kwargs):
     """
     Args:
         name: CLIP model name (ViT-B-32, ViT-B-16, ViT-L-14, ViT-L-14-336, ...)
+        jit: accepted for callers of the JAX package's signature and
+            dropped: the towers run eagerly
         kwargs: `config`, `tokenizer`, `device`, `seed` of `OpenCLIP`
     """
+    del jit
     architecture = _QUICKGELU_FIXUP.get(name, name)
     return OpenCLIP(architecture, "openai", precision=precision, **kwargs)

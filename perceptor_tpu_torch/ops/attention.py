@@ -50,7 +50,10 @@ def causal_mask(seq_len: int, dtype=torch.float32, device=None) -> torch.Tensor:
 def flash_route(seq_q: int, seq_k: int, masked: bool, q: torch.Tensor) -> bool:
     """True when `attention` takes the flash kernels: unmasked, S_q == S_k
     >= 1024 and a multiple of 128 (the JAX rule), for a tensor on a CUDA
-    device."""
+    device. The rule looks at no head_dim or dtype: `flash_attention` pads a
+    head_dim to a multiple of 8, and what the kernels still cannot run (a
+    head_dim above 512, fp16) raises there; nothing is sent to the
+    dot-product path on that account."""
     return (
         not masked
         and seq_q >= 1024

@@ -387,11 +387,26 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+HEAD_DIM_MULTIPLE = 8
+
+
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v over (B, H, S, D), differentiable; the flash
-    kernels on CUDA tensors, their plain versions on CPU tensors."""
+    kernels on CUDA tensors, their plain versions on CPU tensors.
+
+    A head_dim that is no multiple of 8 (the kernels' 16-byte vector loads)
+    is zero-padded up to one and the result sliced back, as the JAX wrapper
+    pads to its lane width: zero columns add nothing to q k^T and give zero
+    output columns, and autograd slices the gradients. `scale` defaults to
+    1/sqrt of the true head_dim. What the kernels still cannot run (a
+    head_dim above 512, fp16) raises on a CUDA tensor."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes (batch, heads, seq, head_dim) tensors")
+    d = q.shape[-1]
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, float(scale))
+        scale = 1.0 / math.sqrt(d)
+    pad = -d % HEAD_DIM_MULTIPLE
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    out = _FlashAttention.apply(q, k, v, float(scale))
+    return out[..., :d] if pad else out

@@ -1,5 +1,5 @@
 """GroupNorm and fused GroupNorm + activation (counterpart of
-perceptor_tpu/ops/groupnorm.py:156-251), NCHW.
+perceptor_tpu/ops/groupnorm.py:156-277), NCHW.
 
 `fused_group_norm_act` is a `torch.autograd.Function` that saves only
 (x, scale, bias, mean, rstd) and recomputes the normalized activations in
@@ -153,3 +153,25 @@ class GroupNormSiLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps)
+
+
+class ScaleShiftGroupNormSiLU(nn.Module):
+    """silu(group_norm(x) * (1 + scale) + shift) with scale/shift (N, C) from
+    a conditioning embedding: ADM's `use_scale_shift_norm`, as one fused op.
+    The learned GroupNorm affine and the embedding's fold into one (N, C)
+    pair; param names (weight, bias) follow torch.nn.GroupNorm."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, num_groups: int = 32,
+                 out_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_groups = min(num_groups, channels)
+        self.eps = eps
+        self.out_dtype = out_dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, scale_nc: torch.Tensor, shift_nc: torch.Tensor):
+        one_plus = 1.0 + scale_nc.float()
+        a = self.weight.float()[None] * one_plus
+        b = self.bias.float()[None] * one_plus + shift_nc.float()
+        return fused_group_norm_act(x, a, b, self.num_groups, self.eps, self.out_dtype)

@@ -32,10 +32,11 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm with min(32, C) groups, fp32 statistics and fp32 output."""
+    """GroupNorm with min(num_groups, C) groups, fp32 statistics and fp32
+    output."""
 
-    def __init__(self, channels: int, eps: float):
-        super().__init__(min(32, channels), channels, eps=eps)
+    def __init__(self, channels: int, eps: float, num_groups: int = 32):
+        super().__init__(min(num_groups, channels), channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)

@@ -8,8 +8,7 @@ perceptor_tpu/predictions/base.py), written over the canonical quantities
 
 with the identity  from_xs = denoised_xs * alpha + predicted_noise * sigma.
 Stochastic methods draw their noise from an explicit `torch.Generator`,
-never the global RNG. Not ported: `reverse_step`, `noisy_reverse_step` and
-the wasserstein diagnostics (ROADMAP queue A).
+never the global RNG.
 """
 
 from __future__ import annotations
@@ -44,8 +43,10 @@ def randn_like(reference: torch.Tensor, generator: Optional[torch.Generator]) ->
 
 def quantile_threshold(xs: torch.Tensor, quantile: float, minimum: float) -> torch.Tensor:
     """Per-sample `quantile` of |xs| (linear interpolation, as jnp.quantile),
-    at least `minimum`, shaped (N, 1, 1, 1)."""
-    flat = xs.reshape(xs.shape[0], -1).abs()
+    at least `minimum`, shaped (N, 1, 1, 1). Computed in fp32
+    (`torch.quantile` takes no bf16) and returned in the dtype that
+    `expand_like_batch` gives."""
+    flat = xs.reshape(xs.shape[0], -1).abs().float()
     threshold = torch.clamp(torch.quantile(flat, quantile, dim=1), min=minimum)
     return expand_like_batch(threshold, xs)
 
@@ -53,7 +54,21 @@ def quantile_threshold(xs: torch.Tensor, quantile: float, minimum: float) -> tor
 class PredictionAlgebra:
     """Mixin over the subclass contract of perceptor_tpu/predictions/base.py:
     alphas(t), sigmas(t), from_alphas, from_sigmas, from_xs, denoised_xs,
-    predicted_noise, _output, _replace_output, _from_pair, _decode_xs."""
+    predicted_noise, _output, _replace_output, _from_pair, _decode_xs, and
+    `_FROM_FIELD`, the name of the dataclass field that holds the diffused
+    input."""
+
+    _FROM_FIELD = ""
+
+    def detached(self, from_input=None):
+        """A copy cut from the autograd graph: the network output detached
+        and the diffused input replaced by `from_input` (default: its own,
+        detached)."""
+        if from_input is None:
+            from_input = getattr(self, self._FROM_FIELD).detach()
+        return self._replace_output(self._output.detach()).replace(
+            **{self._FROM_FIELD: from_input}
+        )
 
     @property
     def denoised_images(self):
@@ -81,6 +96,11 @@ class PredictionAlgebra:
     def correction(self, previous):
         """PNDM-ish second-order correction: average two denoised estimates."""
         return previous.forced_denoised_xs((self.denoised_xs + previous.denoised_xs) / 2)
+
+    def reverse_step(self, to):
+        """Deterministic DDIM inversion toward higher noise."""
+        to_alphas, to_sigmas = self.alphas(to), self.sigmas(to)
+        return self._decode_xs(self.denoised_xs * to_alphas + self.predicted_noise * to_sigmas)
 
     def dpm_solver_pp_step(self, to, prev_denoised_xs, prev_h, is_first):
         """DPM-Solver++(2M) multistep update (predictions/dpm_solver.py).
@@ -118,6 +138,16 @@ class PredictionAlgebra:
             self.denoised_xs * self.from_alphas
             + self.resample_noise(resample, generator) * self.from_sigmas
         )
+
+    def noisy_reverse_step(self, to, generator: Optional[torch.Generator] = None):
+        """Stochastic renoising toward higher noise level `to`."""
+        to_alphas, to_sigmas = self.alphas(to), self.sigmas(to)
+        fresh = randn_like(self.predicted_noise, generator)
+        noise_sigma = (
+            self.from_sigmas * self.predicted_noise
+            + torch.sqrt(to_sigmas**2 - self.from_sigmas**2) * fresh
+        )
+        return self._decode_xs(self.denoised_xs * to_alphas + noise_sigma)
 
     # -- guidance ----------------------------------------------------------
 
@@ -173,3 +203,22 @@ class PredictionAlgebra:
             self.from_alphas >= 1e-3, new_denoised, self.denoised_xs
         )
         return self._from_pair(denoised_xs, predicted_noise)
+
+    # -- diagnostics ---------------------------------------------------------
+
+    def _wasserstein_residuals(self):
+        noise = self.predicted_noise
+        sorted_noise = torch.sort(noise.reshape(noise.shape[0], -1), dim=1).values
+        n = sorted_noise.shape[1]
+        margin = 0.5 / n
+        points = torch.linspace(margin, 1 - margin, n, device=noise.device)
+        expected = torch.special.ndtri(points).to(sorted_noise.dtype)
+        return sorted_noise - expected[None]
+
+    def wasserstein_distance(self):
+        """Gaussianity diagnostic on the predicted noise: mean absolute
+        distance of its sorted values from the normal quantiles."""
+        return self._wasserstein_residuals().abs().mean()
+
+    def wasserstein_square_distance(self):
+        return torch.square(self._wasserstein_residuals()).mean()

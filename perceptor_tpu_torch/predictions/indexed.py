@@ -1,11 +1,14 @@
-"""Latent-space eps predictions on a discrete DDPM schedule (counterpart of
-perceptor_tpu/predictions/indexed.py `LatentIndexedEpsPredictions`).
+"""eps predictions on a discrete DDPM schedule (counterpart of
+perceptor_tpu/predictions/indexed.py): `IndexedEpsPredictions` for
+pixel-space models (ADM / guided diffusion) and
+`LatentIndexedEpsPredictions` for latent-space ones (Stable Diffusion).
 
 The JAX `core/pytree.Functional` record becomes a frozen dataclass with
 `dataclasses.replace`; schedule lookup is tensor indexing into the
-1000-entry alpha/sigma tables carried on the object. `encode` and `decode`
-are the frozen VAE's pixel <-> latent callables, for the pixel-space
-methods (`denoised_images`, the VAE round-trip `dynamic_threshold`).
+1000-entry alpha/sigma tables carried on the object. The latent class's
+`encode` and `decode` are the frozen VAE's pixel <-> latent callables, for
+the pixel-space methods (`denoised_images`, the VAE round-trip
+`dynamic_threshold`).
 """
 
 from __future__ import annotations
@@ -24,19 +27,10 @@ from perceptor_tpu_torch.predictions.base import (
 )
 
 
-@dataclasses.dataclass(frozen=True)
-class LatentIndexedEpsPredictions(PredictionAlgebra):
-    """Stable Diffusion eps predictions; x-space is latent space."""
+class _IndexedEpsBase(PredictionAlgebra):
+    """Schedule lookup and the eps adapters shared by the indexed classes."""
 
-    from_diffused_latents: torch.Tensor  # (N, C, H/8, W/8)
-    from_indices: torch.Tensor  # (N,) int
-    predicted_noise: torch.Tensor  # (N, C, H/8, W/8)
-    schedule_alphas: torch.Tensor  # (T,)
-    schedule_sigmas: torch.Tensor  # (T,)
-    encode: Optional[Callable] = dataclasses.field(default=None, compare=False)
-    decode: Optional[Callable] = dataclasses.field(default=None, compare=False)
-
-    def replace(self, **changes) -> "LatentIndexedEpsPredictions":
+    def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
     def _lookup(self, table: torch.Tensor, indices) -> torch.Tensor:
@@ -62,24 +56,11 @@ class LatentIndexedEpsPredictions(PredictionAlgebra):
         return self.sigmas(self.from_indices)
 
     @property
-    def from_xs(self):
-        return self.from_diffused_latents
-
-    @property
     def denoised_xs(self):
         """(from_xs - sigma * eps) / alpha, alpha clamped away from 0."""
         return (
             self.from_xs - self.from_sigmas * self.predicted_noise
         ) / torch.clamp(self.from_alphas, min=1e-7)
-
-    @property
-    def denoised_latents(self):
-        return self.denoised_xs
-
-    @property
-    def denoised_images(self):
-        """VAE decode of the denoised latents."""
-        return self.decode(self.denoised_xs)
 
     @property
     def _output(self):
@@ -91,6 +72,57 @@ class LatentIndexedEpsPredictions(PredictionAlgebra):
     def _from_pair(self, denoised_xs, predicted_noise):
         del denoised_xs  # eps parameterization: the pair collapses to eps
         return self.replace(predicted_noise=predicted_noise)
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexedEpsPredictions(_IndexedEpsBase):
+    """Pixel-space indexed eps predictions (ADM / guided diffusion)."""
+
+    from_diffused_images: torch.Tensor  # (N, C, H, W) in [0, 1]
+    from_indices: torch.Tensor  # (N,) int
+    predicted_noise: torch.Tensor  # (N, C, H, W)
+    schedule_alphas: torch.Tensor  # (T,)
+    schedule_sigmas: torch.Tensor  # (T,)
+
+    _FROM_FIELD = "from_diffused_images"
+
+    @property
+    def from_xs(self):
+        return diffusion_space.encode(self.from_diffused_images)
+
+    def _decode_xs(self, xs):
+        return diffusion_space.decode(xs)
+
+    def forced_denoised_images(self, denoised_images):
+        return self.forced_denoised_xs(diffusion_space.encode(denoised_images))
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentIndexedEpsPredictions(_IndexedEpsBase):
+    """Stable Diffusion eps predictions; x-space is latent space."""
+
+    from_diffused_latents: torch.Tensor  # (N, C, H/8, W/8)
+    from_indices: torch.Tensor  # (N,) int
+    predicted_noise: torch.Tensor  # (N, C, H/8, W/8)
+    schedule_alphas: torch.Tensor  # (T,)
+    schedule_sigmas: torch.Tensor  # (T,)
+    encode: Optional[Callable] = dataclasses.field(default=None, compare=False)
+    decode: Optional[Callable] = dataclasses.field(default=None, compare=False)
+
+    _FROM_FIELD = "from_diffused_latents"
+
+    @property
+    def from_xs(self):
+        return self.from_diffused_latents
+
+    @property
+    def denoised_latents(self):
+        return self.denoised_xs
+
+    @property
+    def denoised_images(self):
+        """VAE decode of the denoised latents."""
+        return self.decode(self.denoised_xs)
 
     def _decode_xs(self, xs):
         # x-space is latent space: the samplers hand back latents

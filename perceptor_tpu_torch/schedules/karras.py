@@ -1,6 +1,7 @@
-"""Karras rho-spaced schedules snapped to the discrete DDPM grid (counterpart
-of perceptor_tpu/schedules/karras.py `karras_sigma_ramp` and
-`indexed_schedule`). Host-side numpy: the sampler loops over the pairs."""
+"""Karras rho-spaced schedules (counterpart of
+perceptor_tpu/schedules/karras.py): continuous (from_t, to_t) pairs for
+v-diffusion and pairs snapped to the discrete DDPM grid. Host-side numpy:
+the sampler loops over the pairs."""
 
 from __future__ import annotations
 
@@ -15,6 +16,31 @@ def karras_sigma_ramp(
     min_inv_rho = sigma_min ** (1 / rho)
     max_inv_rho = sigma_max ** (1 / rho)
     return (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho
+
+
+def velocity_schedule_ts(
+    n_steps: int = 500, from_ts: float = 1.0, to_ts: float = 1e-2, rho: float = 7.0
+) -> np.ndarray:
+    """(n_steps, 2) fp32 array of (from_t, to_t) pairs in cosine t-space:
+    the endpoint ts mapped to elucidated sigma space (clamped to
+    [1e-3, 150]), a rho ramp there, mapped back to t."""
+    from_alpha = np.cos(from_ts * np.pi / 2)
+    from_sigma = np.sin(from_ts * np.pi / 2)
+    to_alpha = np.cos(to_ts * np.pi / 2)
+    to_sigma = np.sin(to_ts * np.pi / 2)
+
+    from_log_snr = np.log(from_alpha**2 / from_sigma**2)
+    to_log_snr = np.log(to_alpha**2 / to_sigma**2)
+
+    elucidated_from_sigma = min(np.sqrt(1 / np.exp(from_log_snr)), 150.0)
+    elucidated_to_sigma = max(np.sqrt(1 / np.exp(to_log_snr)), 1e-3)
+
+    sigmas = karras_sigma_ramp(elucidated_from_sigma, elucidated_to_sigma, n_steps, rho)
+    log_snr = np.log(1.0 / sigmas**2)
+    alpha = np.sqrt(1.0 / (1.0 + np.exp(-log_snr)))
+    sigma = np.sqrt(1.0 / (1.0 + np.exp(log_snr)))
+    ts = np.arctan2(sigma, alpha) / np.pi * 2
+    return np.stack([ts[:-1], ts[1:]], axis=1).astype(np.float32)
 
 
 def indexed_schedule(

@@ -5,7 +5,10 @@ Constructing the same model wrapper twice with the same arguments returns
 the same live instance, so several losses share one frozen encoder's
 parameters: one copy of the weights in device memory. The key is the text
 of the arguments, so `device=` and `seed=` are part of it: a tower built
-for the CPU is never handed to a caller that asked for CUDA.
+for the CPU is never handed to a caller that asked for CUDA. A call that
+passes a `torch.Generator` is not memoized: a generator's text is its
+address, which a later generator can reuse, and its stream moves on with
+every draw.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import weakref
 from functools import wraps
 from typing import TypeVar
+
+import torch
 
 T = TypeVar("T")
 
@@ -23,6 +28,8 @@ def cache(model: T) -> T:
 
     @wraps(model)
     def wrapper(*args, **kwargs):
+        if any(isinstance(a, torch.Generator) for a in (*args, *kwargs.values())):
+            return model(*args, **kwargs)
         key = str(args) + str(kwargs)
         if key in cached:
             return cached[key]

@@ -20,9 +20,7 @@ from perceptor_tpu_torch.models.clip.configs import CLIPConfig, get_config
 from perceptor_tpu_torch.models.clip.model import CLIP, TextTransformer
 from perceptor_tpu_torch.models.clip_alias import _QUICKGELU_FIXUP
 
-torch.set_num_threads(2)
-# the first multi-threaded exp of a process can be ~1e-4 off on this CPU build
-torch.exp(torch.randn(1 << 16))
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 # fp32 on both sides through two transformer layers
 ATOL = 1e-5
@@ -259,4 +257,4 @@ def test_clip_alias_applies_the_quickgelu_fixup():
         assert dataclasses.replace(get_config(fixed), quick_gelu=False) == dataclasses.replace(
             get_config(name), quick_gelu=False)
     with pytest.raises(AttributeError, match="not ported yet"):
-        models.VelocityDiffusion
+        models.MonsterDiffusion

@@ -20,7 +20,7 @@ from perceptor_tpu_torch import convert
 from perceptor_tpu_torch.engine import guided_sample
 from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
 
-torch.set_num_threads(2)
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 # relative L2 over the final latents and over the per-step losses: fp32 on
 # both sides, through the UNet, the VAE decode and their gradients
@@ -174,3 +174,63 @@ def test_guided_sample_rejects_bad_options(setup):
         guided_sample(*args, conditioning=cond, loss_images="latent")
     with pytest.raises(ValueError, match="generator"):
         guided_sample(*args, conditioning=cond, eta=0.5)
+
+
+def test_image_augment_without_a_generator_gets_one_seeded_zero(setup):
+    """As the JAX entry point defaults its key to PRNGKey(0): the augment is
+    handed a generator on the latents' device, seeded 0, whatever else is
+    passed."""
+    _, sd, x = setup
+    seen = []
+
+    def augment(generator, images):
+        seen.append(generator)
+        return images + 0.01 * torch.randn(images.shape, generator=generator)
+
+    def run(**kwargs):
+        return guided_sample(
+            sd, [lambda images: (images**2).mean()], torch.from_numpy(x["latents"]), x["pairs"],
+            conditioning=torch.from_numpy(x["cond"]), image_augment=augment, **kwargs)
+
+    first, history = run()
+    assert all(isinstance(g, torch.Generator) and g.device.type == "cpu" for g in seen)
+    assert len(seen) == len(x["pairs"]) and torch.isfinite(first).all()
+    assert torch.equal(first, run()[0])
+    assert torch.equal(first, run(generator=torch.Generator().manual_seed(0))[0])
+    assert not torch.equal(first, run(generator=torch.Generator().manual_seed(1))[0])
+
+
+def test_pairs_keep_their_kind(setup, monkeypatch):
+    """Integer (schedule index) pairs reach the model as int64, float
+    (continuous t) pairs as fp32: neither is cast to the other."""
+    _, sd, x = setup
+    seen = []
+    predictions = sd.predictions
+
+    def recording(latents, indices, conditioning):
+        seen.append(indices)
+        return predictions(latents, indices.long(), conditioning)
+
+    monkeypatch.setattr(sd, "predictions", recording)
+    args = (sd, [lambda images: images.mean()], torch.from_numpy(x["latents"]))
+    guided_sample(*args, x["pairs"][:1], conditioning=torch.from_numpy(x["cond"]))
+    guided_sample(*args, np.array([[700.5, 600.25]], np.float64),
+                  conditioning=torch.from_numpy(x["cond"]))
+    assert seen[0].dtype == torch.int64 and seen[0].tolist() == [int(x["pairs"][0, 0])]
+    assert seen[1].dtype == torch.float32 and seen[1].tolist() == [700.5]
+
+
+def test_clip_wrappers_accept_and_drop_jit():
+    """`jit=` is the JAX package's argument; the port's towers run eagerly."""
+    from perceptor_tpu_torch import losses, models
+    from perceptor_tpu_torch.models.clip.configs import CLIPConfig
+
+    cfg = CLIPConfig(
+        embed_dim=16, image_size=(32, 32), patch_size=8, vision_width=24, vision_layers=1,
+        vision_heads=2, context_length=12, vocab_size=64, text_width=20, text_layers=1,
+        text_heads=2)
+    model = models.CLIP("ViT-B-32", jit=False, config=cfg, device="cpu")
+    assert model.architecture == "ViT-B-32-quickgelu"
+    loss = losses.CLIP("ViT-B-32", jit=False, config=cfg, device="cpu")
+    assert loss.name == "ViT-B-32" and torch.isfinite(
+        model.encode_images(torch.rand(1, 3, 32, 32))).all()

@@ -25,15 +25,7 @@ from perceptor_tpu.ops import flash_attention_kernel as jfa
 from perceptor_tpu_torch.ops import attention as tattn
 from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
 
-torch.set_num_threads(2)
-# In a CPU process that has imported jax, the first torch.exp (alone, or
-# inside logsumexp) sometimes returns a chunk of values up to ~1.5e-4
-# relative off, about half the elements, while the matmul before it is
-# exact: 7 of 24 fresh processes under load, 0 of 72 in a quieter batch,
-# and never a later call (0 of 4800). The cause is not known. One throwaway
-# call at import keeps every comparison below on the settled kernel;
-# test_cpu_exp_is_exact_after_one_call checks what that relies on.
-torch.exp(torch.zeros(2, 256, 256))
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 FWD_ATOL = 2e-5
 GRAD_ATOL = 3e-5
@@ -60,7 +52,7 @@ _EXP_CALLS = textwrap.dedent("""
 def test_cpu_exp_is_exact_after_one_call():
     """Fresh processes that have imported jax, as this file's: the second
     torch.exp matches float64 to fp32 rounding. The first call's error,
-    sometimes ~1e-4 (see the warm-up above), is printed, not asserted."""
+    sometimes ~1e-4 (see test_torch_cpu_guard.py), is printed, not asserted."""
     procs = [
         subprocess.Popen([sys.executable, "-c", _EXP_CALLS], stdout=subprocess.PIPE, text=True)
         for _ in range(4)

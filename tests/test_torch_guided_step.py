@@ -23,7 +23,7 @@ from perceptor_tpu.predictions import LatentIndexedEpsPredictions
 from perceptor_tpu.schedules import scaled_linear_alphas_sigmas
 from perceptor_tpu_torch import convert, guided_step
 
-torch.set_num_threads(2)
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_RTOL = 1e-5
@@ -158,11 +158,18 @@ def test_port_imports_no_jax():
         "             'losses.smoothness', 'losses.resize', 'losses.spherical_distance',\n"
         "             'transforms.interface', 'transforms.clamp', 'transforms.dynamic_threshold',\n"
         "             'transforms.resize_transform', 'transforms.cutouts', 'drawers.interface',\n"
-        "             'drawers.inits', 'drawers.raw', 'drawers.jpeg.codec', 'drawers.jpeg.jpeg'):\n"
+        "             'drawers.inits', 'drawers.raw', 'drawers.jpeg.codec', 'drawers.jpeg.jpeg',\n"
+        "             'drawers.brute_diffusion', 'losses.velocity_diffusion', 'schedules.cosine',\n"
+        "             'predictions.velocity', 'models.guided_diffusion.unet',\n"
+        "             'models.guided_diffusion.guided_diffusion', 'models.velocity_diffusion.net',\n"
+        "             'models.velocity_diffusion.pndm',\n"
+        "             'models.velocity_diffusion.velocity_diffusion'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
         "drawers.Raw, drawers.JPEG, engine.optimize, engine.run_on_device, transforms.random_cutouts\n"
+        "models.GuidedDiffusion, models.VelocityDiffusion, losses.VelocityDiffusion\n"
+        "drawers.BruteDiffusion\n"
         "for m in pkgutil.walk_packages(perceptor_tpu_torch.__path__, 'perceptor_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"

@@ -22,9 +22,7 @@ from perceptor_tpu_torch import convert, losses, models
 from perceptor_tpu_torch.losses.prompt_bank import PromptBankLoss
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
 
-torch.set_num_threads(2)
-# the first multi-threaded exp of a process can be ~1e-4 off on this CPU build
-torch.exp(torch.randn(1 << 16))
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 VALUE_ATOL = 1e-5
 # max |gradient error| over max |gradient|

@@ -25,7 +25,7 @@ from perceptor_tpu_torch.models.stable_diffusion import config as sd_config
 from perceptor_tpu_torch.models.stable_diffusion.unet import UNet, timestep_embedding
 from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
 
-torch.set_num_threads(2)
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 # fp32 model parity, within the README's 2e-5..5e-4 bar
 UNET_ATOL = 1e-4

@@ -11,6 +11,7 @@ from perceptor_tpu.losses.prompt_bank import spherical_distance_squared as j_sph
 from perceptor_tpu.ops.attention import causal_mask as j_causal_mask
 from perceptor_tpu.ops.attention import dot_product_attention as j_dpa
 from perceptor_tpu.ops.clamp import clamp_with_grad as j_clamp
+from perceptor_tpu.ops.groupnorm import ScaleShiftGroupNormSiLU as JScaleShift
 from perceptor_tpu.ops.groupnorm import fused_group_norm_act as j_gn
 from perceptor_tpu.ops.resize import resize as j_resize
 from perceptor_tpu.predictions import LatentIndexedEpsPredictions as JPred
@@ -19,12 +20,14 @@ from perceptor_tpu_torch.core.dtypes import cast_matmul_params_bf16
 from perceptor_tpu_torch.losses.prompt_bank import spherical_distance_squared as t_sph
 from perceptor_tpu_torch.ops import attention as tattn
 from perceptor_tpu_torch.ops.clamp import clamp_with_grad as t_clamp
-from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU, fused_group_norm_act as t_gn
+from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
+from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU, ScaleShiftGroupNormSiLU
+from perceptor_tpu_torch.ops.groupnorm import fused_group_norm_act as t_gn
 from perceptor_tpu_torch.ops.resize import resize as t_resize
 from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions as TPred
 from perceptor_tpu_torch.schedules import scaled_linear_alphas_sigmas as t_sched
 
-torch.set_num_threads(2)
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 # pure algebra agrees to fp32 rounding
 ALGEBRA_ATOL = 1e-6
@@ -207,3 +210,89 @@ def test_cast_matmul_params_bf16():
     assert module[1].weight.dtype == torch.float32
     sd = cast_matmul_params_bf16({"w": torch.zeros(2, 2), "b": torch.zeros(2)})
     assert sd["w"].dtype == torch.bfloat16 and sd["b"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("channels,groups", [(32, 32), (24, 8)])
+def test_scale_shift_group_norm_silu_forward_and_gradients_match_jax(channels, groups):
+    """silu(group_norm(x) * (1 + scale) + shift), the learned affine folded
+    in: forward and the gradients of x, scale, shift and the learned affine,
+    atol 2e-5 (fp32 on both sides)."""
+    rng = _rng(20)
+    x = rng.standard_normal((2, channels, 6, 5)).astype(np.float32)
+    scale, shift = (0.5 * rng.standard_normal((2, channels)).astype(np.float32) for _ in range(2))
+    g_s = (1.0 + 0.1 * rng.standard_normal(channels)).astype(np.float32)
+    g_b = (0.1 * rng.standard_normal(channels)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    jmodule = JScaleShift(num_groups=groups)
+
+    def j_fn(x, scale, shift, g_s, g_b):
+        y = jmodule.apply({"params": {"scale": g_s, "bias": g_b}}, x, scale, shift)
+        return (y * _nchw_to_nhwc(jnp.asarray(dy))).sum(), y
+
+    (_, j_y), j_grads = jax.value_and_grad(j_fn, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        _nchw_to_nhwc(jnp.asarray(x)), *(jnp.asarray(a) for a in (scale, shift, g_s, g_b)))
+    module = ScaleShiftGroupNormSiLU(channels, num_groups=groups)
+    with torch.no_grad():
+        module.weight.copy_(torch.from_numpy(g_s))
+        module.bias.copy_(torch.from_numpy(g_b))
+    tx, tscale, tshift = (torch.from_numpy(a).requires_grad_(True) for a in (x, scale, shift))
+    t_y = module(tx, tscale, tshift)
+    (t_y * torch.from_numpy(dy)).sum().backward()
+    np.testing.assert_allclose(t_y.detach().permute(0, 2, 3, 1).numpy(), np.asarray(j_y), atol=2e-5)
+    np.testing.assert_allclose(tx.grad.permute(0, 2, 3, 1).numpy(), np.asarray(j_grads[0]), atol=2e-5)
+    for got, want in zip((tscale.grad, tshift.grad, module.weight.grad, module.bias.grad), j_grads[1:]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+def test_one_group_relu_with_per_sample_affine_matches_jax():
+    """The v-diffusion FiLM block's use: GroupNorm(1 group, no learned
+    affine), an (N, C) scale-shift, ReLU."""
+    rng = _rng(21)
+    x = rng.standard_normal((2, 12, 5, 5)).astype(np.float32)
+    scale, shift = (rng.standard_normal((2, 12)).astype(np.float32) for _ in range(2))
+    j_y = j_gn(_nchw_to_nhwc(jnp.asarray(x)), jnp.asarray(scale) + 1.0, jnp.asarray(shift), 1, 1e-5,
+               jnp.float32, "relu")
+    t_y = t_gn(torch.from_numpy(x), torch.from_numpy(scale) + 1.0, torch.from_numpy(shift), 1, 1e-5,
+               torch.float32, "relu")
+    np.testing.assert_allclose(t_y.permute(0, 2, 3, 1).numpy(), np.asarray(j_y), atol=2e-5)
+    assert float(t_y.min()) == 0.0
+
+
+@pytest.mark.parametrize("d", [12, 20, 64])
+def test_flash_attention_pads_the_head_dim_to_a_multiple_of_8(d, monkeypatch):
+    """A head_dim the kernels' 16-byte loads cannot take is zero-padded in
+    the wrapper and the result and gradients sliced back (the JAX wrapper
+    pads to its lane width the same way); the scale stays 1/sqrt(true d)."""
+    seen = []
+    forward = tfa.flash_forward
+
+    def recording(q, k, v, scale):
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        return forward(q, k, v, scale)
+
+    monkeypatch.setattr(tfa, "flash_forward", recording)
+    rng = _rng(22)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 2, 16, d)).astype(np.float32))
+                   for _ in range(4))
+    outs = {}
+    for use_flash in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tattn.attention(*leaves, use_flash=use_flash)
+        grads = torch.autograd.grad((out * do).sum(), leaves)
+        outs[use_flash] = (out.detach(), *grads)
+    padded = d + (-d % 8)
+    assert seen == [(padded, padded, padded, 1.0 / np.sqrt(d))]
+    assert outs[True][0].shape == (1, 2, 16, d)
+    for got, want in zip(outs[True], outs[False]):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+
+
+def test_flash_kernels_refuse_loudly_what_they_cannot_run():
+    """The checks that stand before a launch: fp16 and a head_dim above 512
+    raise; nothing is routed to the plain version on their account."""
+    q = torch.zeros((1, 1, 128, 64), dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa._check_cuda_inputs([("q", q)], [128])
+    with pytest.raises(ValueError, match="head_dim 520"):
+        tfa._check_cuda_inputs([("q", torch.zeros((1, 1, 128, 520)))], [128])

@@ -28,9 +28,7 @@ from perceptor_tpu_torch import convert, drawers, engine, losses, models, transf
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
 from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
 
-torch.set_num_threads(2)
-# the first multi-threaded exp of a process can be ~1e-4 off on this CPU build
-torch.exp(torch.randn(1 << 16))
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 STEPS = 8
 # SGD: the same arithmetic on both sides, fp32 through CLIP and back

@@ -36,7 +36,7 @@ from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
 from perceptor_tpu_torch.predictions.base import PredictionAlgebra
 from perceptor_tpu_torch.schedules import indexed_schedule, karras_sigma_ramp
 
-torch.set_num_threads(2)
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 # fp32 text encoder and single prediction methods: summation order only
 TEXT_ATOL = 1e-5

@@ -13,7 +13,7 @@ import torch
 from perceptor_tpu import transforms as jtransforms
 from perceptor_tpu_torch import transforms
 
-torch.set_num_threads(2)
+import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)
 
 # two fp32 contractions over at most 40 source pixels
 ATOL = 1e-5
