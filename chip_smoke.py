@@ -38,6 +38,10 @@ exits non-zero without a result line:
                   decode or encode), finite images, seconds per image, ms
                   per sampling step, text-encode and decode ms, peak memory;
 6. sample_profile one CFG sampling step under torch.profiler;
+   sample_deepcache  the 20-step DDIM again with `cache_interval=3`
+                  (DeepCache) beside `cache_interval=1`: 10 launches a full
+                  step and 5 a cached one, each step checked; seconds per
+                  image of both and the relative L2 between their images;
 7. guided_sample  `engine.guided_sample` with CFG for 2 steps, the guided
                   step's CLIP loss (a fixed random target): 21 launches of
                   each kernel a step, finite latents and losses, ms per step
@@ -88,11 +92,29 @@ exits non-zero without a result line:
                   attention sites have at most 256 tokens), finite outputs,
                   seconds per image, ms per UNet evaluation, peak memory; one
                   UNet evaluation under torch.profiler;
-17. timings       each kernel, its plain version and PyTorch's
+17. ldm_text2image  `models.latent_diffusion.Text2Image()` at full width
+                  (32-layer BERT, the 320-channel spatial-transformer UNet,
+                  KL-f8; random weights from seed 0, a synthetic vocabulary)
+                  at 256px, CFG 5: a 10-step DDIM, a 5-step dpm++ and a
+                  5-step DDIM at eta 0.5: 5 forward launches a UNet
+                  evaluation and 1 a decode, finite images, ms per
+                  evaluation, seconds per image, peak memory, one (CFG)
+                  evaluation under torch.profiler; then the UNet's kernel
+                  route against its plain route and an fp32 copy;
+18. ldm_face      `Face()` (VQ-f4) at 256px, 10-step DDIM: 5 launches an
+                  evaluation (the ds-2 AttentionBlocks, 14 heads of 32), 1 a
+                  decode (the VQ decoder's mid block, S = 4096); a profiled
+                  evaluation as above;
+19. ldm_super_resolution  `SuperResolution()` on a 64 -> 256 canvas, 10-step
+                  DDIM at eta 1: no UNet launch (attention at 64 tokens), 1 a
+                  decode; a profiled evaluation;
+20. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
-                  forward at the batch-2 sites), beside the card's bound;
-                  launches queue up behind a spin on the device, so a small
-                  kernel is timed at the device's pace, not the host's.
+                  forward at the batch-2 sites), PyTorch's fused flash
+                  backward where it takes the head_dim (d <= 256), beside
+                  the card's bound; launches queue up behind a spin on the
+                  device, so a small kernel is timed at the device's pace,
+                  not the host's.
 
 Each phase measures its launches per step and holds them against the one
 table PER_STEP. Then the kernel table as one JSON line (launches of every
@@ -127,6 +149,19 @@ CFG_SITES = (
 # head-interleaved views of one qkv projection;
 # (site, batch, heads, seq, head_dim, launches per UNet evaluation)
 ADM_SITES = (("adm_ds16_attn", 1, 8, 1024, 64, 5),)
+# the latent-diffusion family's new flash sites at 256px: Text2Image's
+# spatial-transformer self-attention at ds 1 (32 x 32 latents, the CFG pair
+# batched; 8 heads of 40), Face's ds-2 AttentionBlocks (14 heads of 32,
+# head-interleaved) and the KL-f8 decoder's mid block. The VQ-f4 decoder's
+# mid block is the SD VAE's (1, 1, 4096, 512) and DeepCache's cached SD step
+# keeps the level-0 CFG site.
+# (site, batch, heads, seq, head_dim, launches per UNet evaluation / decode)
+LDM_SITES = (
+    ("txt2img_ds1_attn1_cfg", 2, 8, 1024, 40, 5),
+    ("face_ds2_attn", 1, 14, 1024, 32, 5),
+    ("kl_f8_mid_attn_256", 1, 1, 1024, 512, 1),
+)
+LDM_SITE_PATHS = ("ldm_text2image", "ldm_face", "ldm_text2image_decode")
 # The one table of expected launches: each kernel's launches per step of
 # each path, by entry point. The guided step is one UNet evaluation (5
 # self-attentions at level 0, S = 4096, and 5 at level 1, S = 1024) and the
@@ -148,6 +183,16 @@ PER_STEP = {
     # cc12m_1_cfg at 256px: attention at 16 x 16 tokens and below
     "velocity_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "velocity_guided_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # DeepCache on `sample`: a full step is the batched CFG evaluation; a
+    # cached one runs level 0 only (2 down + 3 up spatial transformers)
+    "sample_deepcache_full": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
+    "sample_deepcache_cached": {"flash_fwd": 5, "flash_dq": 0, "flash_dkv": 0},
+    # the latent-diffusion family at 256px, per UNet evaluation: Text2Image
+    # 2 input + 3 output transformers at ds 1, Face 2 + 3 AttentionBlocks at
+    # ds 2, SuperResolution none (attention at ds 8 / 16 of 64 x 64 latents)
+    "ldm_text2image": {"flash_fwd": 5, "flash_dq": 0, "flash_dkv": 0},
+    "ldm_face": {"flash_fwd": 5, "flash_dq": 0, "flash_dkv": 0},
+    "ldm_super_resolution": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -185,6 +230,23 @@ VELOCITY_SAMPLE_RUNS = (
     ("dpm++", {"n_steps": 5, "method": "dpm++"}),
 )
 VELOCITY_REVERSE_STEPS = 10
+DEEPCACHE_STEPS = 20
+DEEPCACHE_INTERVAL = 3
+# the latent-diffusion family at 256px, batch 1, full width and depth
+LDM_SIZE = 256
+LDM_CFG_SCALE = 5.0
+LDM_TEXT2IMAGE_RUNS = (
+    ("ddim", {"n_steps": 10}),
+    ("dpm++", {"n_steps": 5, "method": "dpm++"}),
+    ("ddim_eta", {"n_steps": 5, "eta": 0.5}),
+)
+LDM_FACE_RUNS = (("ddim", {"n_steps": 10}),)
+LDM_SR_RUNS = (("ddim_eta1", {"n_steps": 10}),)
+LDM_SR_LOW_RES = 64
+# bert-base-uncased has 30,522 entries; no vocabulary file is in the tree, so
+# a synthetic one of that size: a few real word pieces, then [unusedN]
+BERT_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "cat", "photo", "of", "##s", "the"]
+BERT_VOCAB += [f"[unused{i}]" for i in range(30522 - len(BERT_VOCAB))]
 VELOCITY_GUIDED_STEPS = 3
 # the text-prompted optimization phases (CLIP ViT-B/32, openai config)
 CLIP_NAME = "ViT-B-32"
@@ -359,6 +421,23 @@ def adm_site_inputs(b, h, s, d, seed):
     return [q, k, v, do.view(b, s, h, d).transpose(1, 2)]
 
 
+def projection_site_inputs(b, h, s, d, seed):
+    """q, k, v, do as `CrossAttention` hands them over: each a (B, S, H * D)
+    projection viewed (B, H, S, D)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [
+        torch.randn((b, s, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        .view(b, s, h, d).transpose(1, 2)
+        for _ in range(4)
+    ]
+
+
+# how each LDM site's module hands q, k and v to `attention`
+LDM_SITE_INPUTS = (projection_site_inputs, adm_site_inputs, site_inputs)
+
+
 def phase_kernels(fa) -> dict:
     """Each kernel against its plain version at the main paths' shapes."""
     import torch
@@ -367,6 +446,7 @@ def phase_kernels(fa) -> dict:
     sites = []
     site_list = [(site, site_inputs) for site in SITES]
     site_list += [(site, adm_site_inputs) for site in ADM_SITES]
+    site_list += list(zip(LDM_SITES, LDM_SITE_INPUTS))
     for i, ((site, b, h, s, d, _), make_inputs) in enumerate(site_list):
         q, k, v, do = make_inputs(b, h, s, d, seed=i)
         scale = 1.0 / math.sqrt(d)
@@ -467,7 +547,7 @@ def phase_kernel_info(fa, library) -> None:
     info = [
         {"kernel": name, "site": site, "head_dim": d,
          **fa.kernel_info(name.removeprefix("flash_"), d, torch.bfloat16)}
-        for site, _, _, _, d, _ in SITES + ADM_SITES for name in REPLACES
+        for site, _, _, _, d, _ in SITES + ADM_SITES + LDM_SITES for name in REPLACES
     ]
     ptxas = []
     report = library.with_suffix(".ptxas.txt")
@@ -1379,14 +1459,238 @@ def phase_velocity_sample(fa):
     return launches, measured
 
 
+def fused_flash_backward(q, k, v, do, scale):
+    """PyTorch's one call for the attention backward, the flash kernel
+    behind SDPA (head dims up to 256), given its own forward's output and
+    logsumexp: a callable computing (dq, dk, dv), or None where the op does
+    not take the head_dim."""
+    import torch
+
+    if q.shape[-1] > 256:
+        return None
+    aten = torch.ops.aten
+    o, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, False, False, scale=scale)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, o, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset, scale=scale)
+
+
+def phase_sample_deepcache(fa, sd):
+    """`StableDiffusion.sample` at 512px, CFG 7, DEEPCACHE_STEPS-step DDIM,
+    with `cache_interval=DEEPCACHE_INTERVAL` and with 1: each step's flash
+    launches checked (a full step 10, a cached one 5), seconds per image of
+    both, and the relative L2 between the two images, a fact and not a gate.
+    Returns (launches, {path: launches per step})."""
+    import torch
+
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    sd.sample([PROMPT], n_steps=4, size=size, cache_interval=DEEPCACHE_INTERVAL)  # warm-up
+    torch.cuda.synchronize()
+    totals = {name: 0 for name in REPLACES}
+    runs, images = [], {}
+    for interval in (1, DEEPCACHE_INTERVAL):
+        timer = PartTimer(fa, sd, ("cfg_predictions", "decode"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        images[interval] = sd.sample(
+            [PROMPT], n_steps=DEEPCACHE_STEPS, guidance_scale=CFG_SCALE, size=size,
+            generator=torch.Generator(device="cuda").manual_seed(0), cache_interval=interval)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        timer.remove()
+        steps = timer.calls["cfg_predictions"]
+        cached = [i % interval != 0 for i in range(len(steps))]
+        for i, (_, _, launched) in enumerate(steps):
+            want = PER_STEP["sample_deepcache_cached" if cached[i] else "sample_deepcache_full"]
+            if launched != want:
+                raise AssertionError(f"sample_deepcache interval {interval} step {i}: {launched}")
+        if timer.launches("decode") != PER_VAE_CALL:
+            raise AssertionError(f"sample_deepcache: decode launched {timer.launches('decode')}")
+        img = images[interval]
+        if img.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not torch.isfinite(img).all():
+            raise AssertionError(f"sample_deepcache interval {interval}: images not finite")
+        step_ms = [start.elapsed_time(end) for start, end, _ in steps]
+        runs.append({
+            "cache_interval": interval, "k": len(steps), "cached_steps": sum(cached),
+            "launches": launches, "s_per_image": wall,
+            "ms_full_step": sorted(t for t, c in zip(step_ms, cached) if not c)[
+                (len(cached) - sum(cached)) // 2],
+            "ms_cached_step": (sorted(t for t, c in zip(step_ms, cached) if c)[sum(cached) // 2]
+                               if any(cached) else None),
+            "decode_ms": timer.ms("decode"), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "image_mean": float(img.mean()), "image_std": float(img.std()),
+        })
+        for kernel in totals:
+            totals[kernel] += launches[kernel]
+    emit({"phase": "sample_deepcache", "ok": True, "model": MODEL, "steps": DEEPCACHE_STEPS,
+          "guidance_scale": CFG_SCALE, "runs": runs,
+          "rel_l2_cached_vs_exact": _rel_l2(images[DEEPCACHE_INTERVAL], images[1])})
+    return totals, {"sample_deepcache_full": PER_STEP["sample_deepcache_full"],
+                    "sample_deepcache_cached": PER_STEP["sample_deepcache_cached"]}
+
+
+def phase_ldm(fa, phase, model, runs, sample, evaluate) -> tuple:
+    """`sample(options)` for each run of `runs` on a latent-diffusion
+    wrapper: the UNet evaluations (k + 1) and their flash launches per
+    evaluation (held to PER_STEP[phase]), the decode's (PER_VAE_CALL), no
+    launch elsewhere (BERT's 77 tokens take the plain route); finite images
+    of LDM_SIZE; seconds per image, ms per UNet evaluation, decode ms and
+    peak memory; then `evaluate()`, one UNet evaluation, under the
+    profiler. Returns (record, launches, launches per evaluation)."""
+    import torch
+
+    sample({"n_steps": 3})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    totals = {name: 0 for name in REPLACES}
+    records = []
+    for name, options in runs:
+        unet = PartTimer(fa, model.unet, ("forward",))
+        parts = PartTimer(fa, model, ("images",))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        images = sample(options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        unet.remove()
+        parts.remove()
+        evals = len(unet.calls["forward"])
+        measured = per_step(unet.launches("forward"), evals)
+        check_per_step(phase, measured)
+        if parts.launches("images") != PER_VAE_CALL or len(parts.calls["images"]) != 1:
+            raise AssertionError(f"{phase} {name}: decode launched {parts.launches('images')}")
+        outside = {k: launches[k] - unet.launches("forward")[k] - parts.launches("images")[k]
+                   for k in launches}
+        if any(outside.values()):
+            raise AssertionError(f"{phase} {name}: launches outside the UNet and decode {outside}")
+        if images.shape != (1, 3, LDM_SIZE, LDM_SIZE) or not torch.isfinite(images).all():
+            raise AssertionError(f"{phase} {name}: images {tuple(images.shape)} not finite")
+        records.append({
+            "run": name, "options": options, "k": evals - 1, "unet_evals": evals,
+            "launches": launches, "launches_per_unet_eval": measured,
+            "decode_launches": parts.launches("images"), "s_per_image": wall,
+            "ms_per_unet_eval": unet.ms("forward") / evals, "decode_ms": parts.ms("images"),
+            "images_shape": list(images.shape), "image_mean": float(images.mean()),
+            "image_std": float(images.std()), "image_min": float(images.min()),
+            "image_max": float(images.max()), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        })
+        for kernel in totals:
+            totals[kernel] += launches[kernel]
+    with torch.no_grad():
+        profile = profile_record(evaluate)
+    record = {"phase": phase, "ok": True, "image_size": LDM_SIZE,
+              "parameters": sum(p.numel() for m in (model.unet, model.first_stage)
+                                for p in m.parameters()), "runs": records,
+              "unet_eval_profile": profile}
+    return record, totals, measured
+
+
+def phase_ldm_text2image(fa):
+    """`Text2Image()` at full width, 256px, CFG LDM_CFG_SCALE: the runs of
+    LDM_TEXT2IMAGE_RUNS, then the UNet's kernel route against the plain
+    route and an fp32 copy (a batched CFG evaluation at index 500)."""
+    import torch
+
+    from perceptor_tpu_torch.models.latent_diffusion import BERTTokenizer, Text2Image
+
+    t0 = time.perf_counter()
+    model = Text2Image(guidance_scale=LDM_CFG_SCALE, tokenizer=BERTTokenizer(vocab=BERT_VOCAB),
+                       device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    size = (LDM_SIZE, LDM_SIZE)
+
+    def sample(options):
+        return model.sample([PROMPT], size=size,
+                            generator=torch.Generator(device="cuda").manual_seed(0), **options)
+
+    cond = model.conditioning([PROMPT])
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    latents = torch.randn((1, *model.latent_shape(*size)), generator=gen, device="cuda")
+    ts = torch.full((2,), 500.0, device="cuda")
+    record, launches, measured = phase_ldm(
+        fa, "ldm_text2image", model, LDM_TEXT2IMAGE_RUNS, sample,
+        lambda: model.eps(latents, 500, cond))
+    record["parameters"] += sum(p.numel() for p in model.bert.parameters())
+
+    def unet_cfg_out(unet, use_flash):
+        _set_route(unet, use_flash)
+        with torch.no_grad():
+            return (unet(torch.cat([latents, latents]), ts, cond),)
+
+    torch.cuda.reset_peak_memory_stats()
+    record["route_parity"] = compare_routes("txt2img_unet_cfg", model.unet, unet_cfg_out, ("out",))
+    record.update(build_s=build_s, guidance_scale=LDM_CFG_SCALE, prompt=PROMPT,
+                  conditioning_shape=list(cond.shape),
+                  route_parity_peak_mem_bytes=torch.cuda.max_memory_allocated())
+    emit(record)
+    return launches, measured
+
+
+def phase_ldm_face(fa):
+    """`Face()` at 256px: the runs of LDM_FACE_RUNS."""
+    import torch
+
+    from perceptor_tpu_torch.models.latent_diffusion import Face
+
+    model = Face(device="cuda", seed=0)
+
+    def sample(options):
+        return model.sample(n_images=1, size=(LDM_SIZE, LDM_SIZE),
+                            generator=torch.Generator(device="cuda").manual_seed(0), **options)
+
+    latents = torch.randn((1, *model.latent_shape(LDM_SIZE, LDM_SIZE)),
+                          generator=torch.Generator(device="cuda").manual_seed(12), device="cuda")
+    record, launches, measured = phase_ldm(fa, "ldm_face", model, LDM_FACE_RUNS, sample,
+                                           lambda: model.eps(latents, 500))
+    emit(record)
+    return launches, measured
+
+
+def phase_ldm_super_resolution(fa):
+    """`SuperResolution()` on a seeded LDM_SR_LOW_RES image upsampled to the
+    LDM_SIZE canvas: the runs of LDM_SR_RUNS (eta 1, the model's default)."""
+    import torch
+
+    from perceptor_tpu_torch.models.latent_diffusion import SuperResolution
+
+    model = SuperResolution(device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    low_res = torch.rand((1, 3, LDM_SR_LOW_RES, LDM_SR_LOW_RES), generator=gen, device="cuda")
+    canvas = model.upsample(low_res)
+    if canvas.shape != (1, 3, LDM_SIZE, LDM_SIZE):
+        raise AssertionError(f"ldm_super_resolution: canvas {tuple(canvas.shape)}")
+
+    def sample(options):
+        return model.sample(canvas, generator=torch.Generator(device="cuda").manual_seed(0),
+                            **options)
+
+    cond = model.conditioning(canvas)
+    latents = torch.randn(cond.shape, generator=torch.Generator(device="cuda").manual_seed(13),
+                          device="cuda")
+    record, launches, measured = phase_ldm(fa, "ldm_super_resolution", model, LDM_SR_RUNS, sample,
+                                           lambda: model.eps(latents, 500, cond))
+    record.update(low_res=LDM_SR_LOW_RES, eta=model.eta)
+    emit(record)
+    return launches, measured
+
+
 def phase_timings(fa, peak_flops, peak_bw) -> list:
-    """Kernel, plain version and SDPA per site, and the bound."""
+    """Kernel, plain version, SDPA and the fused flash backward per site,
+    and the bound."""
     import torch
     import torch.nn.functional as F
 
     rows = []
     site_list = [(site, site_inputs, "guided_step") for site in SITES] + [
-        (site, adm_site_inputs, "adm_guided_sample") for site in ADM_SITES]
+        (site, adm_site_inputs, "adm_guided_sample") for site in ADM_SITES] + list(
+        zip(LDM_SITES, LDM_SITE_INPUTS, LDM_SITE_PATHS))
     for i, ((site, b, h, s, d, count), make_inputs, path) in enumerate(site_list):
         q, k, v, do = make_inputs(b, h, s, d, seed=100 + i)
         scale = 1.0 / math.sqrt(d)
@@ -1407,6 +1711,8 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
 
         with torch.no_grad():
             sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            fused_bwd = fused_flash_backward(q, k, v, do, scale)
+            fused_bwd_ms = None if fused_bwd is None else time_ms(fused_bwd)
         sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd)
         for name, (kernel_fn, plain_fn) in kernels.items():
             flops, nbytes = site_work(name, b, h, s, d)
@@ -1418,6 +1724,7 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "flops": flops, "bytes": nbytes,
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+                "fused_bwd_ms": fused_bwd_ms,
             })
     # the forward at the CFG sampling step's batch-2 sites
     for i, (site, b, h, s, d, count) in enumerate(CFG_SITES):
@@ -1442,10 +1749,19 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
         return sum(r[key] * r["per_step"] for r in rows
                    if r["kernel"] in names and r["path"] == "guided_step")
 
+    # and against PyTorch's fused flash backward (dq, dk and dv in one
+    # call) at the sites whose head_dim it takes
+    fused = [r for r in rows if r["path"] == "guided_step" and r["fused_bwd_ms"] is not None]
     backward = {
         "dq_plus_dkv_ms": weighted(("flash_dq", "flash_dkv"), "ms"),
         "sdpa_bwd_ms": weighted(("flash_fwd",), "sdpa_fwd_bwd_ms")
         - weighted(("flash_fwd",), "sdpa_fwd_ms"),
+        "fused_bwd_ms_where_taken": sum(
+            r["fused_bwd_ms"] * r["per_step"] for r in fused if r["kernel"] == "flash_fwd"),
+        "dq_plus_dkv_ms_where_taken": sum(
+            r["ms"] * r["per_step"] for r in fused if r["kernel"] in ("flash_dq", "flash_dkv")),
+        "no_fused_bwd_sites": sorted(
+            {r["site"] for r in rows if "fused_bwd_ms" in r and r["fused_bwd_ms"] is None}),
     }
     emit({"phase": "timings", "ok": True, "rows": rows, "backward_per_step": backward})
     return rows
@@ -1465,6 +1781,11 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
         sampling = [r for r in rows if r["kernel"] == name and r["path"] == "sample"]
         adm = sum(r["ms"] * r["per_step"] for r in rows
                   if r["kernel"] == name and r["path"] == "adm_guided_sample")
+
+        def path_ms(path):
+            return sum(r["ms"] * r["per_step"] for r in rows
+                       if r["kernel"] == name and r["path"] == path)
+
         t_ops = sum(r["flops"] * r["per_step"] for r in mine)
         t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
         table.append({
@@ -1488,6 +1809,11 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
                 # per UNet evaluation (forward only) and per guided step
                 "adm_sample": adm if name == "flash_fwd" else 0.0,
                 "adm_guided_sample": adm,
+                # forward only: per UNet evaluation, and per decode
+                "ldm_text2image": path_ms("ldm_text2image") if name == "flash_fwd" else 0.0,
+                "ldm_face": path_ms("ldm_face") if name == "flash_fwd" else 0.0,
+                "ldm_text2image_decode":
+                    path_ms("ldm_text2image_decode") if name == "flash_fwd" else 0.0,
             },
         })
     return table
@@ -1536,6 +1862,8 @@ def main() -> int:
     emit({"phase": "sd_build", "ok": True, "model": MODEL, "seconds": time.perf_counter() - t0})
     launches["sample"], measured["sample"] = phase_sample(fa, sd)
     phase_sample_profile(sd)
+    launches["sample_deepcache"], deepcache_measured = phase_sample_deepcache(fa, sd)
+    measured.update(deepcache_measured)
     launches["guided_sample"], measured["guided_sample"] = phase_guided_sample(fa, sd, step)
     # the optimization phases' peaks are their own: no diffusion model loaded
     del step, sd
@@ -1565,6 +1893,11 @@ def main() -> int:
     measured.update(velocity_measured)
     del clip
     torch.cuda.empty_cache()
+    # the latent-diffusion family, one model at a time
+    for phase in (phase_ldm_text2image, phase_ldm_face, phase_ldm_super_resolution):
+        path = phase.__name__.removeprefix("phase_")
+        launches[path], measured[path] = phase(fa)
+        torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, measured, errors)}))

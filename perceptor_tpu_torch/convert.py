@@ -5,16 +5,19 @@ returns a state_dict for the port's module, inverting the rules of the JAX
 converters (perceptor_tpu/models/stable_diffusion/convert.py,
 perceptor_tpu/models/clip/convert.py,
 perceptor_tpu/models/guided_diffusion/convert.py,
-perceptor_tpu/models/velocity_diffusion/convert.py):
+perceptor_tpu/models/velocity_diffusion/convert.py,
+perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py):
 
     conv   (kh, kw, I, O) -> (O, I, kh, kw)
     dense  (I, O)         -> (O, I)      (ADM's 1x1 conv1d: (O, I, 1))
     norm   scale          -> weight
 
-The port's keys are diffusers' (UNet, VAE), open_clip's (CLIP) and OpenAI
-guided_diffusion's (ADM), so the JAX package's own `unet_from_diffusers`,
-`vae_from_diffusers`, `from_openclip` and the two `from_torch` map these
-state_dicts back to the same trees.
+The port's keys are diffusers' (UNet, VAE, the VQ stage's backbone),
+open_clip's (CLIP), OpenAI guided_diffusion's (ADM; CompVis's for its
+spatial transformers) and x-transformer's (BERT), so the JAX package's own
+`unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the two
+`from_torch` and `convert_bert` map these state_dicts back to the same
+trees.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
 from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
+from perceptor_tpu_torch.models.latent_diffusion.bert import BERTConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
 
@@ -271,9 +275,8 @@ _ADM_BLOCK = re.compile(r"(input_blocks|output_blocks|middle_block)_(?:(\d+)_)?(
 def adm_state_dict_from_jax(params: Mapping, cfg: ADMConfig) -> StateDict:
     """Flax `ADMUNet` params -> state_dict of the port's (OpenAI-named)
     ADMUNet; the inverse of the JAX package's `guided_diffusion/convert.py
-    from_torch`."""
-    if cfg.spatial_transformer:
-        raise NotImplementedError("the spatial_transformer ADM UNet is not ported")
+    from_torch`. A `spatial_transformer` config's attention blocks are
+    SD spatial transformers under CompVis's names."""
     sd: StateDict = {}
     for name, p in params.items():
         if name in ("time_embed_0", "time_embed_2"):
@@ -292,6 +295,8 @@ def adm_state_dict_from_jax(params: Mapping, cfg: ADMConfig) -> StateDict:
             prefix = ".".join(x for x in (group, index, sub) if x is not None)
             if resampler:  # Downsample `op` / Upsample `conv`
                 _conv(p, f"{prefix}.{resampler[1:]}", sd)
+            elif "proj_in" in p:
+                _spatial_transformer(p, prefix, cfg.transformer_depth, sd)
             elif "qkv" in p:
                 _norm(p["norm"], f"{prefix}.norm", sd)
                 _conv1d(p["qkv"], f"{prefix}.qkv", sd)
@@ -337,3 +342,55 @@ def vnet_state_dict_from_jax(params: Mapping, cfg: VNetConfig) -> StateDict:
                 else:
                     _conv(lp, f"{prefix}.main.{layer}", sd)
     return sd
+
+
+def bert_state_dict_from_jax(params: Mapping, cfg: BERTConfig) -> StateDict:
+    """Flax `BERTEncoder` params -> state_dict of the port's (x-transformer
+    named) BERTEncoder; the inverse of the JAX package's `convert_bert`."""
+    sd: StateDict = {
+        "token_emb.weight": _t(params["token_emb"]),
+        "pos_emb.emb.weight": _t(params["pos_emb"]),
+    }
+    _norm(params["final_norm"], "norm", sd)
+    for i in range(cfg.depth):
+        attn, ff = f"attn_layers.layers.{2 * i}", f"attn_layers.layers.{2 * i + 1}"
+        _norm(params[f"attn_norm_{i}"], f"{attn}.0", sd)
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            _linear(params[f"attn_{i}"][name], f"{attn}.1.{name}", sd)
+        _norm(params[f"ff_norm_{i}"], f"{ff}.0", sd)
+        _linear(params[f"ff_{i}_proj"], f"{ff}.1.net.0.0", sd)
+        _linear(params[f"ff_{i}_out"], f"{ff}.1.net.2", sd)
+    return sd
+
+
+def vq_state_dict_from_jax(params: Mapping, cfg: VAEConfig) -> StateDict:
+    """Flax `VQModel` params -> state_dict of the port's VQModel: the
+    diffusers-named backbone and the codebook `quantize.embedding.weight`."""
+    sd = vae_state_dict_from_jax(params, cfg)
+    sd["quantize.embedding.weight"] = _t(params["quantize"]["embedding"])
+    return sd
+
+
+def text2image_state_dicts_from_jax(
+    params: Mapping, unet_cfg: ADMConfig, vae_cfg: VAEConfig, bert_cfg: BERTConfig
+) -> Dict[str, StateDict]:
+    """The JAX `Text2Image.params` tree ({"unet", "first_stage", "bert"}) ->
+    the port's three state_dicts under the same keys, as
+    `Text2Image.load_state_dicts` takes them."""
+    return {
+        "unet": adm_state_dict_from_jax(params["unet"], unet_cfg),
+        "first_stage": vae_state_dict_from_jax(params["first_stage"], vae_cfg),
+        "bert": bert_state_dict_from_jax(params["bert"], bert_cfg),
+    }
+
+
+def vq_diffusion_state_dicts_from_jax(
+    params: Mapping, unet_cfg: ADMConfig, vq_cfg: VAEConfig
+) -> Dict[str, StateDict]:
+    """The JAX `Face.params` or `SuperResolution.params` tree ({"unet",
+    "first_stage"}) -> the port's state_dicts under the same keys, as their
+    `load_state_dicts` takes them."""
+    return {
+        "unet": adm_state_dict_from_jax(params["unet"], unet_cfg),
+        "first_stage": vq_state_dict_from_jax(params["first_stage"], vq_cfg),
+    }

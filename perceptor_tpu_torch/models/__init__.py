@@ -11,13 +11,15 @@ _EXPORTS = {
     "StableDiffusion": ("perceptor_tpu_torch.models.stable_diffusion", "StableDiffusion"),
     "GuidedDiffusion": ("perceptor_tpu_torch.models.guided_diffusion", "GuidedDiffusion"),
     "VelocityDiffusion": ("perceptor_tpu_torch.models.velocity_diffusion", "VelocityDiffusion"),
+    # the subpackage itself (Text2Image, Face, SuperResolution, ...)
+    "latent_diffusion": ("perceptor_tpu_torch.models.latent_diffusion", None),
 }
 
 _NOT_PORTED = (
     "MonsterDiffusion", "DeepImagePrior", "VGG19",
     "SuperResolution", "MidasDepth", "AdaBinsDepth", "SimulacraAesthetic",
     "AestheticVisualAssessment", "BLIP", "CLOOB", "SLIP", "LiT", "ResMem", "RuCLIP",
-    "GlideCLIP", "OWLViT", "StyleGANXL", "TransformersOpenAICLIP", "latent_diffusion",
+    "GlideCLIP", "OWLViT", "StyleGANXL", "TransformersOpenAICLIP",
 )
 
 __all__ = list(_EXPORTS)
@@ -28,7 +30,8 @@ def __getattr__(name):
         import importlib
 
         module_name, attr = _EXPORTS[name]
-        value = getattr(importlib.import_module(module_name), attr)
+        module = importlib.import_module(module_name)
+        value = module if attr is None else getattr(module, attr)
         globals()[name] = value
         return value
     if name in _NOT_PORTED:

@@ -16,8 +16,11 @@ channel order is ADM's legacy head-interleaved one,
 and q, k, v are strided (N, H, S, d) views of its output, which the flash
 kernels take as they are.
 
-The latent diffusion family's `spatial_transformer` branch is not ported
-yet (ROADMAP.md queue A item 5.3).
+With `spatial_transformer` (the latent diffusion family's UNets) the
+port's SD `SpatialTransformer` takes the place of every `AttentionBlock`,
+under CompVis's names (`input_blocks.{i}.1.proj_in`,
+`.transformer_blocks.{k}.attn1.to_q`, ...), and `forward` takes the
+cross-attention `context`.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
-from perceptor_tpu_torch.models.stable_diffusion.unet import timestep_embedding
+from perceptor_tpu_torch.models.stable_diffusion.unet import SpatialTransformer, timestep_embedding
 from perceptor_tpu_torch.ops.attention import attention
 from perceptor_tpu_torch.ops.conv_matmul import Conv3x3
 from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU, ScaleShiftGroupNormSiLU
@@ -147,26 +150,28 @@ class Upsample(nn.Module):
 
 
 class TimestepBlocks(nn.ModuleList):
-    """ADM's TimestepEmbedSequential: ResBlocks take the embedding."""
+    """ADM's TimestepEmbedSequential: ResBlocks take the embedding,
+    SpatialTransformers the context."""
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, context=None):
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, ResBlock) else layer(x)
+            if isinstance(layer, ResBlock):
+                x = layer(x, emb)
+            elif isinstance(layer, SpatialTransformer):
+                x = layer(x, context)
+            else:
+                x = layer(x)
         return x
 
 
 class ADMUNet(nn.Module):
-    """forward(xs NCHW in [-1, 1], timesteps (N,) or scalar) ->
+    """forward(xs NCHW in [-1, 1], timesteps (N,) or scalar, context (N, S,
+    context_dim) with `spatial_transformer`, else None) ->
     (N, out_channels, H, W), fp32."""
 
     def __init__(self, config: ADMConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.spatial_transformer:
-            raise NotImplementedError(
-                "the spatial_transformer ADM UNet belongs to the latent diffusion family, "
-                "which is not ported yet (ROADMAP.md queue A item 5.3)"
-            )
         time_dim = cfg.model_channels * 4
         self.time_embed = nn.ModuleList(
             [Linear(cfg.model_channels, time_dim), nn.Identity(), Linear(time_dim, time_dim)]
@@ -176,7 +181,12 @@ class ADMUNet(nn.Module):
             return ResBlock(ch_in, ch_out, time_dim, cfg.use_scale_shift_norm, **resample)
 
         def attn_block(ch):
-            return AttentionBlock(ch, cfg.heads_for(ch))
+            heads = cfg.heads_for(ch)
+            if cfg.spatial_transformer:
+                return SpatialTransformer(
+                    ch, heads, ch // heads, cfg.transformer_depth, cfg.context_dim
+                )
+            return AttentionBlock(ch, heads)
 
         ch = int(cfg.channel_mult[0] * cfg.model_channels)
         blocks = [TimestepBlocks([Conv3x3(cfg.in_channels, ch)])]
@@ -221,7 +231,11 @@ class ADMUNet(nn.Module):
         ])
 
     def forward(self, xs, timesteps, context=None):
-        if context is not None:
+        if self.config.spatial_transformer:
+            if context is None:
+                raise ValueError("spatial-transformer UNet needs context")
+            context = context.to(self.input_blocks[0][0].weight.dtype)
+        elif context is not None:
             raise ValueError("this ADM UNet takes no context (no spatial_transformer)")
         if not torch.is_tensor(timesteps):
             timesteps = torch.tensor(timesteps, device=xs.device)
@@ -233,10 +247,10 @@ class ADMUNet(nn.Module):
         x = xs
         skips = []
         for block in self.input_blocks:
-            x = block(x, emb)
+            x = block(x, emb, context)
             skips.append(x)
-        x = self.middle_block(x, emb)
+        x = self.middle_block(x, emb, context)
         for block in self.output_blocks:
-            x = block(torch.cat([x, skips.pop()], dim=1), emb)
+            x = block(torch.cat([x, skips.pop()], dim=1), emb, context)
         x = self.out[2](self.out[0](x))
         return x.float()

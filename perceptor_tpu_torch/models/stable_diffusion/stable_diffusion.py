@@ -8,7 +8,11 @@
   - `conditioning(texts)` through the tokenizer and the CLIP text encoder;
   - `sample()`: text to images with classifier-free guidance (CFG), DDIM
     (`eta` for the stochastic variant) or DPM-Solver++(2M), img2img
-    (`init_images` + `from_index`) and RePaint resampling (`n_resample`).
+    (`init_images` + `from_index`), RePaint resampling (`n_resample`) and
+    DeepCache (`cache_interval`: the UNet's deep levels rerun every k-th
+    step and are reused in between);
+  - `finetuneable_vae()`: VAE gradients on inside, the frozen weights
+    restored on exit.
 
 CFG runs the uncond/cond pair as one batched UNet call (batch 2N), as the
 JAX program does. Where JAX compiles the sampler into one `lax.scan`
@@ -21,13 +25,15 @@ checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
 (`convert.stable_diffusion_state_dicts_from_jax`).
 
 Not ported (ROADMAP queue A): inpainting (`Conditioning`, latent masks,
-`replace_diffused`, the 9-channel UNet), DeepCache (`cache_interval`),
-`mesh`/`rules`, `prime`, the `export_*` programs, `finetuneable_vae` and
-checkpoint discovery.
+`replace_diffused`, the 9-channel UNet), `mesh`/`rules`, `prime`, the
+`export_*` programs and checkpoint discovery. An original CompVis
+checkpoint's UNet keys map onto `UNet` through
+`models/stable_diffusion/convert.py compvis_to_diffusers_unet`.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -160,6 +166,29 @@ class StableDiffusion:
         """scaled latents -> images (N, 3, H, W), fp32."""
         return self.vae.decode(latents)
 
+    @contextmanager
+    def finetuneable_vae(self):
+        """A scope in which the VAE can be finetuned: its parameters require
+        gradients inside; on exit the weights it had on entry and their
+        `requires_grad` flags come back::
+
+            with model.finetuneable_vae() as m:
+                optimizer = torch.optim.Adam(m.vae.parameters())
+                loss(m.decode(latents)).backward()
+                optimizer.step()
+            # the original frozen VAE is restored here
+        """
+        saved = {k: v.detach().clone() for k, v in self.vae.state_dict().items()}
+        flags = {name: p.requires_grad for name, p in self.vae.named_parameters()}
+        self.vae.requires_grad_(True)
+        try:
+            yield self
+        finally:
+            with torch.no_grad():
+                self.vae.load_state_dict(saved)
+            for name, p in self.vae.named_parameters():
+                p.requires_grad_(flags[name])
+
     def preview_images_fn(self, latents) -> torch.Tensor:
         """Linear latent -> RGB preview at latent resolution (no VAE):
         approximate but differentiable and nearly free."""
@@ -219,6 +248,7 @@ class StableDiffusion:
         n_resample: int = 0,
         init_images=None,
         method: str = "ddim",
+        cache_interval: int = 1,
     ) -> torch.Tensor:
         """Text -> images (N, 3, H, W) in [0, 1], fp32.
 
@@ -227,14 +257,18 @@ class StableDiffusion:
         step; `method="dpm++"` swaps the DDIM update for DPM-Solver++(2M),
         which is deterministic (no `eta`, no `n_resample`). Negative
         prompts replace the empty uncond prompt. `generator` defaults to
-        one seeded 0 on the model's device."""
-        self._check_method(method, eta, n_resample)
+        one seeded 0 on the model's device. `cache_interval > 1` turns on
+        DeepCache: step i runs the whole UNet when i % cache_interval == 0
+        and otherwise only its shallowest level on the cached deep feature
+        (fewer FLOPs at a small quality cost; 1, the default, is exact;
+        `n_resample` is refused with it)."""
+        self._check_method(method, eta, n_resample, cache_interval)
         generator, uncond, cond, pairs, latents = self._setup(
             texts, negative_texts, n_steps, size, generator, from_index, to_index, init_images
         )
         latents = self.sample_loop(
             latents, pairs, uncond, cond, guidance_scale, eta=eta, generator=generator,
-            n_resample=n_resample, method=method,
+            n_resample=n_resample, method=method, cache_interval=cache_interval,
         )
         return self.decode(latents)
 
@@ -262,22 +296,32 @@ class StableDiffusion:
         return generator, uncond, cond, pairs, latents
 
     @staticmethod
-    def _check_method(method: str, eta, n_resample: int) -> None:
+    def _check_method(method: str, eta, n_resample: int, cache_interval: int = 1) -> None:
         if method not in METHODS:
             raise ValueError(f"unknown sampling method: {method!r}")
         if method == "dpm++" and (eta or n_resample):
             raise ValueError("dpm++ is deterministic: eta/n_resample do not apply")
+        if cache_interval > 1 and n_resample > 0:
+            raise ValueError("cache_interval and n_resample are incompatible")
 
-    def cfg_predictions(self, latents, from_idx, context2, guidance_scale):
+    def cfg_predictions(self, latents, from_idx, context2, guidance_scale, cache=None,
+                        return_cache=False):
         """CFG predictions from one batched UNet call on the (uncond, cond)
-        pair; `context2` is the uncond and cond encodings concatenated."""
+        pair; `context2` is the uncond and cond encodings concatenated.
+        `cache` / `return_cache` pass through to the UNet's DeepCache
+        branch; with `return_cache` the result is (predictions, cache)."""
         noise2 = self.unet(
-            torch.cat([latents, latents]), torch.cat([from_idx, from_idx]).float(), context2
+            torch.cat([latents, latents]), torch.cat([from_idx, from_idx]).float(), context2,
+            cache=cache, return_cache=return_cache,
         )
+        if return_cache:
+            noise2, cache = noise2
         noise_uncond, noise_cond = noise2.chunk(2)
-        return self._make_predictions(latents, from_idx, noise_uncond).classifier_free_guidance(
-            self._make_predictions(latents, from_idx, noise_cond), guidance_scale
-        )
+        predictions = self._make_predictions(
+            latents, from_idx, noise_uncond
+        ).classifier_free_guidance(self._make_predictions(latents, from_idx, noise_cond),
+                                   guidance_scale)
+        return (predictions, cache) if return_cache else predictions
 
     @torch.no_grad()
     def sample_loop(
@@ -291,31 +335,41 @@ class StableDiffusion:
         generator: Optional[torch.Generator] = None,
         n_resample: int = 0,
         method: str = "ddim",
+        cache_interval: int = 1,
     ) -> torch.Tensor:
         """The sampler from given diffused latents: for each (from, to)
         pair of `pairs`, `n_resample` RePaint iterations, then one CFG
-        prediction and a DDIM (or DPM-Solver++(2M)) step. Returns the final
-        latents."""
-        self._check_method(method, eta, n_resample)
+        prediction (through the DeepCache partial pass on the steps
+        `cache_interval` skips) and a DDIM (or DPM-Solver++(2M)) step.
+        Returns the final latents."""
+        self._check_method(method, eta, n_resample, cache_interval)
         for latents, _ in self._steps(
-            latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample, method
+            latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample, method,
+            cache_interval,
         ):
             pass
         return latents
 
     def _steps(self, latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample,
-               method):
+               method, cache_interval=1):
         """Yields (latents, CFG predictions) after each (from, to) pair."""
         n = latents.shape[0]
         context2 = torch.cat([uncond, cond])
         pairs = torch.as_tensor(np.asarray(pairs), device=self.device).long()
         prev_x0, prev_h = torch.zeros_like(latents), torch.ones((n, 1, 1, 1), device=self.device)
+        cache = None  # step 0 runs the whole UNet
         for i in range(pairs.shape[0]):
             from_idx, to_idx = pairs[i, 0].expand(n), pairs[i, 1].expand(n)
             for _ in range(n_resample):  # RePaint
                 predictions = self.cfg_predictions(latents, from_idx, context2, guidance_scale)
                 latents = predictions.resample(to_idx, generator)
-            predictions = self.cfg_predictions(latents, from_idx, context2, guidance_scale)
+            if cache_interval > 1:
+                predictions, cache = self.cfg_predictions(
+                    latents, from_idx, context2, guidance_scale,
+                    cache=cache if i % cache_interval else None, return_cache=True,
+                )
+            else:
+                predictions = self.cfg_predictions(latents, from_idx, context2, guidance_scale)
             if method == "dpm++":
                 latents, prev_h = predictions.dpm_solver_pp_step(to_idx, prev_x0, prev_h, i == 0)
                 prev_x0 = predictions.denoised_xs

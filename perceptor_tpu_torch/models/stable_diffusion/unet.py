@@ -8,8 +8,8 @@ Module names follow the diffusers UNet2DConditionModel state_dict
 its weight's dtype (bf16 storage = bf16 compute); GroupNorm/LayerNorm
 statistics and the attention softmax run in fp32. The JAX `EMIT_LANE_PAD`
 head-dim padding is TPU layout work: the port passes the true head_dim and
-scale = 1/sqrt(dim_head). The DeepCache `cache`/`return_cache` branch is
-not ported yet.
+scale = 1/sqrt(dim_head). `forward` has the JAX UNet's DeepCache branch
+(`cache` / `return_cache`, arXiv:2312.03209).
 """
 
 from __future__ import annotations
@@ -265,38 +265,64 @@ class UNet(nn.Module):
         self.conv_norm_out = GroupNormSiLU(channels[0])
         self.conv_out = Conv3x3(channels[0], cfg.out_channels)
 
-    def forward(self, latents, timesteps, context):
+    def forward(self, latents, timesteps, context, cache=None, return_cache=False):
+        """Denoise. DeepCache: `return_cache=True` also returns the deep
+        feature that enters the last (shallowest) up level, `(out, cache)`;
+        `cache=<that feature>` skips down levels 1.., the mid block and up
+        levels ..n-2, running conv_in, down level 0 (for its skips), the last
+        up level on the cache and the head. The full path is unchanged."""
         if not torch.is_tensor(timesteps):
             timesteps = torch.tensor(timesteps, device=latents.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(latents.shape[0])
         emb = timestep_embedding(timesteps, self.config.block_channels[0])
         emb = self.time_embedding(emb)
-        context = context.to(self.conv_in.weight.dtype)
+        dtype = self.conv_in.weight.dtype
+        context = context.to(dtype)
 
         x = self.conv_in(latents)
         skips = [x]
-        for level in self.down_blocks:
-            for j, resnet in enumerate(level.resnets):
-                x = resnet(x, emb)
-                if hasattr(level, "attentions"):
-                    x = level.attentions[j](x, context)
-                skips.append(x)
-            if hasattr(level, "downsamplers"):
-                x = level.downsamplers[0](x)
-                skips.append(x)
+        if cache is not None:
+            self._down_level(self.down_blocks[0], x, emb, context, skips)
+            x = self._up_level(self.up_blocks[-1], cache.to(dtype), emb, context, skips)
+        else:
+            for level in self.down_blocks:
+                x = self._down_level(level, x, emb, context, skips)
+                if hasattr(level, "downsamplers"):
+                    x = level.downsamplers[0](x)
+                    skips.append(x)
 
-        x = self.mid_block.resnets[0](x, emb)
-        x = self.mid_block.attentions[0](x, context)
-        x = self.mid_block.resnets[1](x, emb)
+            x = self.mid_block.resnets[0](x, emb)
+            x = self.mid_block.attentions[0](x, context)
+            x = self.mid_block.resnets[1](x, emb)
 
-        for level in self.up_blocks:
-            for j, resnet in enumerate(level.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=1), emb)
-                if hasattr(level, "attentions"):
-                    x = level.attentions[j](x, context)
-            if hasattr(level, "upsamplers"):
-                x = level.upsamplers[0](x)
+            for level in self.up_blocks[:-1]:
+                x = self._up_level(level, x, emb, context, skips)
+            deep_feature = x
+            x = self._up_level(self.up_blocks[-1], x, emb, context, skips)
 
-        x = self.conv_out(self.conv_norm_out(x))
-        return x.float()
+        x = self.conv_out(self.conv_norm_out(x)).float()
+        if return_cache:
+            return x, (cache if cache is not None else deep_feature)
+        return x
+
+    @staticmethod
+    def _down_level(level, x, emb, context, skips):
+        """A down level's resnets (and transformers), each output a skip; the
+        downsampler is the caller's."""
+        for j, resnet in enumerate(level.resnets):
+            x = resnet(x, emb)
+            if hasattr(level, "attentions"):
+                x = level.attentions[j](x, context)
+            skips.append(x)
+        return x
+
+    @staticmethod
+    def _up_level(level, x, emb, context, skips):
+        for j, resnet in enumerate(level.resnets):
+            x = resnet(torch.cat([x, skips.pop()], dim=1), emb)
+            if hasattr(level, "attentions"):
+                x = level.attentions[j](x, context)
+        if hasattr(level, "upsamplers"):
+            x = level.upsamplers[0](x)
+        return x

@@ -302,8 +302,16 @@ def test_guided_sample_on_adm_matches_jax(wrappers, options):
 
 
 def test_what_is_not_ported_says_so_and_cuda_is_the_default():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ADMUNet(dataclasses.replace(adm_config.TINY, spatial_transformer=True, context_dim=8))
+    # the spatial-transformer branch is ported: it builds and needs a context
+    st = ADMUNet(dataclasses.replace(adm_config.TINY, spatial_transformer=True, context_dim=8))
+    with pytest.raises(ValueError, match="needs context"):
+        st(torch.zeros((1, 3, 8, 8)), torch.tensor([1.0]))
+    with pytest.raises(ValueError, match="takes no context"):
+        ADMUNet(adm_config.TINY)(torch.zeros((1, 3, 8, 8)), torch.tensor([1.0]),
+                                 torch.zeros((1, 2, 8)))
+    # models.SuperResolution names the ESRGAN wrapper, which is not ported
+    with pytest.raises(AttributeError, match="not ported yet"):
+        models.SuperResolution
     with pytest.raises(ValueError, match="Unknown model name"):
         GuidedDiffusion("huge", device="cpu")
     assert models.GuidedDiffusion is GuidedDiffusion

@@ -163,13 +163,19 @@ def test_port_imports_no_jax():
         "             'predictions.velocity', 'models.guided_diffusion.unet',\n"
         "             'models.guided_diffusion.guided_diffusion', 'models.velocity_diffusion.net',\n"
         "             'models.velocity_diffusion.pndm',\n"
-        "             'models.velocity_diffusion.velocity_diffusion'):\n"
+        "             'models.velocity_diffusion.velocity_diffusion', 'models.stable_diffusion.convert',\n"
+        "             'models.latent_diffusion.bert', 'models.latent_diffusion.first_stage',\n"
+        "             'models.latent_diffusion.ddim', 'models.latent_diffusion.text2image',\n"
+        "             'models.latent_diffusion.face', 'models.latent_diffusion.super_resolution'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
         "drawers.Raw, drawers.JPEG, engine.optimize, engine.run_on_device, transforms.random_cutouts\n"
         "models.GuidedDiffusion, models.VelocityDiffusion, losses.VelocityDiffusion\n"
         "drawers.BruteDiffusion\n"
+        "ld = models.latent_diffusion\n"
+        "ld.Text2Image, ld.Face, ld.SuperResolution, ld.VQModel, ld.VectorQuantizer\n"
+        "ld.BERTEncoder, ld.BERTTokenizer, ld.convert_compvis_autoencoder\n"
         "for m in pkgutil.walk_packages(perceptor_tpu_torch.__path__, 'perceptor_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"

@@ -12,6 +12,8 @@ on in-range ids (drawn directly, or from `InRangeTokenizer`), and the
 real-vocab tokenizer is held against JAX on its own.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from perceptor_tpu.models.clip import tokenizer as jtok
 from perceptor_tpu.models.stable_diffusion import CLIPTextEncoder as JTextEncoder
 from perceptor_tpu.models.stable_diffusion import StableDiffusion as JStableDiffusion
 from perceptor_tpu.models.stable_diffusion import config as jsd_config
+from perceptor_tpu.models.stable_diffusion import convert as jsd_convert
 from perceptor_tpu.models.stable_diffusion.stable_diffusion import Conditioning
 from perceptor_tpu.predictions import LatentIndexedEpsPredictions as JPred
 from perceptor_tpu.predictions.base import PredictionAlgebra as JAlgebra
@@ -30,7 +33,11 @@ from perceptor_tpu.schedules import indexed_schedule as j_indexed_schedule
 from perceptor_tpu.schedules import karras_sigma_ramp as j_karras_sigma_ramp
 from perceptor_tpu_torch import convert
 from perceptor_tpu_torch.models.clip import tokenizer as ttok
-from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
+from perceptor_tpu_torch.models.guided_diffusion import ADMUNet
+from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
+from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion, UNet
+from perceptor_tpu_torch.models.stable_diffusion import config as sd_config
+from perceptor_tpu_torch.models.stable_diffusion.convert import compvis_to_diffusers_unet
 from perceptor_tpu_torch.ops import attention as tattn
 from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
 from perceptor_tpu_torch.predictions.base import PredictionAlgebra
@@ -402,3 +409,126 @@ def test_stable_diffusion_needs_cuda_unless_cpu_is_asked():
         StableDiffusion("tiny")
     with pytest.raises(ValueError, match="unknown stable diffusion name"):
         StableDiffusion("sd-9", device="cpu")
+
+
+# -- DeepCache, the CompVis key map, finetuneable_vae ------------------------
+
+
+def test_unet_deepcache_passes_match_jax(models):
+    """`return_cache=True` returns the deep feature entering the last up
+    level, and `cache=` runs only the shallow level on it: both against the
+    JAX UNet's branch, and the full pass is unchanged."""
+    jsd, sd = models
+    cfg = jsd_config.TINY_TEXT
+    rng = np.random.default_rng(35)
+    latents = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    ts = np.array([700.0, 650.0], np.float32)
+    context = rng.standard_normal((2, cfg.context_length, cfg.width)).astype(np.float32)
+    apply = jax.jit(lambda x, **kw: jsd.unet.apply({"params": jsd.params["unet"]}, x,
+                                                   jnp.asarray(ts), jnp.asarray(context), **kw),
+                    static_argnames=("return_cache",))
+    j_out, j_cache = apply(jnp.asarray(latents), return_cache=True)
+    other = (latents + 0.3).astype(np.float32)
+    j_partial = apply(jnp.asarray(other), cache=j_cache)
+    args = (torch.from_numpy(ts), torch.from_numpy(context))
+    with torch.no_grad():
+        out, cache = sd.unet(torch.from_numpy(latents), *args, return_cache=True)
+        partial = sd.unet(torch.from_numpy(other), *args, cache=cache)
+        again, same = sd.unet(torch.from_numpy(other), *args, cache=cache, return_cache=True)
+        full = sd.unet(torch.from_numpy(latents), *args)
+    assert cache.shape == (2, 64, 8, 8)  # the last up level's input: level 1 upsampled
+    np.testing.assert_allclose(out.numpy(), _np(j_out), atol=1e-4)
+    # JAX's cache is NHWC, the port's NCHW
+    np.testing.assert_allclose(cache.permute(0, 2, 3, 1).numpy(), _np(j_cache), atol=1e-4)
+    np.testing.assert_allclose(partial.numpy(), _np(j_partial), atol=1e-4)
+    assert torch.equal(full, out) and torch.equal(again, partial) and same is cache
+
+
+@pytest.mark.parametrize("method", ["ddim", "dpm++"])
+def test_sample_loop_with_deepcache_matches_jax_program(models, method):
+    """`cache_interval=3` over 5 pairs: full UNet passes at steps 0 and 3,
+    the partial pass on the cache at 1, 2 and 4; against JAX's program."""
+    jsd, sd = models
+    cfg = jsd_config.TINY_TEXT
+    rng = np.random.default_rng(36)
+    latents = rng.standard_normal((1, 4, 8, 8)).astype(np.float32)
+    uncond, cond = (rng.standard_normal((1, cfg.context_length, cfg.width)).astype(np.float32)
+                    for _ in range(2))
+    pairs = sd.schedule_indices(5)
+    assert len(pairs) == 5
+    want = jsd._get_sample_run()(
+        jsd.params, jnp.asarray(latents), jnp.asarray(pairs),
+        Conditioning("tiny", jnp.concatenate([jnp.asarray(uncond), jnp.asarray(cond)])),
+        jnp.zeros(latents.shape), jax.random.PRNGKey(0), jnp.float32(7.0), jnp.float32(0.0),
+        0, False, 3, False, method,
+    )
+    args = (torch.from_numpy(latents), pairs, torch.from_numpy(uncond), torch.from_numpy(cond), 7.0)
+    got = sd.sample_loop(*args, method=method, cache_interval=3)
+    assert _rel_l2(got.numpy(), want) <= LOOP_RTOL
+    # the cached steps change the result; cache_interval 1 is the exact sampler
+    assert _rel_l2(got.numpy(), sd.sample_loop(*args, method=method).numpy()) > 1e-4
+    with pytest.raises(ValueError, match="incompatible"):
+        sd.sample_loop(*args, n_resample=1, cache_interval=2)
+    with pytest.raises(ValueError, match="incompatible"):
+        sd.sample(["a"], n_steps=3, size=(16, 16), n_resample=1, cache_interval=2)
+
+
+# the ADM spatial-transformer config that describes TINY_UNET's network
+ADM_TWIN = ADMConfig(
+    image_size=8, model_channels=32, channel_mult=(1, 2), num_res_blocks=1, attention_ds=(1,),
+    num_heads=2, in_channels=4, out_channels=4, spatial_transformer=True, context_dim=32,
+)
+
+
+def test_compvis_to_diffusers_unet_matches_jax_and_its_adm_twin():
+    """On one CompVis-named state_dict (an ADM spatial-transformer UNet's,
+    under `model.diffusion_model.`): the same keys and values as the JAX
+    map; loaded into the SD UNet, the same output as the ADM UNet."""
+    adm = ADMUNet(ADM_TWIN).eval()
+    gen = torch.Generator().manual_seed(37)
+    with torch.no_grad():
+        for p in adm.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    compvis = {f"model.diffusion_model.{k}": v for k, v in adm.state_dict().items()}
+    compvis["first_stage_model.encoder.conv_in.weight"] = torch.zeros(1)  # not the UNet's
+    got = compvis_to_diffusers_unet(compvis, sd_config.TINY_UNET)
+    want = jsd_convert.compvis_to_diffusers_unet(compvis, jsd_config.TINY_UNET)
+    assert set(got) == set(want) and len(got) == len(adm.state_dict())
+    assert all(got[k] is want[k] for k in want)
+    unet = UNet(sd_config.TINY_UNET).eval()
+    unet.load_state_dict(got)  # strict: every key of the SD UNet is covered
+    rng = np.random.default_rng(38)
+    xs = torch.from_numpy(rng.standard_normal((2, 4, 8, 8)).astype(np.float32))
+    ts = torch.tensor([900.0, 30.0])
+    context = torch.from_numpy(rng.standard_normal((2, 5, 32)).astype(np.float32))
+    with torch.no_grad():
+        np.testing.assert_allclose(unet(xs, ts, context).numpy(), adm(xs, ts, context).numpy(),
+                                   atol=1e-5)
+    # bare keys work too
+    assert set(compvis_to_diffusers_unet(adm.state_dict(), sd_config.TINY_UNET)) == set(got)
+
+
+def test_finetuneable_vae_restores_weights_and_flags(models):
+    _, sd = models
+    before = {k: v.clone() for k, v in sd.vae.state_dict().items()}
+    latents = torch.from_numpy(np.random.default_rng(39).standard_normal((1, 4, 8, 8))
+                               .astype(np.float32))
+    sd.vae.requires_grad_(False)
+    with sd.finetuneable_vae() as m:
+        assert m is sd and all(p.requires_grad for p in sd.vae.parameters())
+        optimizer = torch.optim.SGD(sd.vae.parameters(), lr=0.1)
+        m.decode(latents).square().mean().backward()
+        optimizer.step()
+        changed = sd.vae.decoder.conv_out.weight.detach().clone()
+    assert not torch.equal(changed, before["decoder.conv_out.weight"])
+    assert not any(p.requires_grad for p in sd.vae.parameters())
+    after = sd.vae.state_dict()
+    assert all(torch.equal(after[k], before[k]) for k in before)
+    # restored on an exception too
+    with pytest.raises(RuntimeError, match="stop"):
+        with sd.finetuneable_vae():
+            with torch.no_grad():
+                sd.vae.decoder.conv_out.weight.add_(1.0)
+            raise RuntimeError("stop")
+    assert torch.equal(sd.vae.decoder.conv_out.weight, before["decoder.conv_out.weight"])
+    assert dataclasses.asdict(sd_config.TINY_UNET) == dataclasses.asdict(jsd_config.TINY_UNET)
