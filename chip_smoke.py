@@ -108,7 +108,26 @@ exits non-zero without a result line:
 19. ldm_super_resolution  `SuperResolution()` on a 64 -> 256 canvas, 10-step
                   DDIM at eta 1: no UNet launch (attention at 64 tokens), 1 a
                   decode; a profiled evaluation;
-20. timings       each kernel, its plain version and PyTorch's
+20. inpaint_sample  (run after guided_sample, with phases 21 too)
+                  `StableDiffusion(INPAINT_MODEL).sample` at 512px, CFG
+                  7, 20-step DDIM with `replace_diffused` on a synthetic
+                  image with its left half masked: 10 launches a batched
+                  UNet evaluation, one per VAE call (three encodes in JAX's
+                  order, one decode), finite images, the known region held
+                  to the replace step's bound; s per image, ms per step;
+21. inpaint_guided_sample  `engine.guided_sample` on that model over
+                  `Conditioning`s, CFG 7, 2 steps: 21 / 21 / 21 launches a
+                  step; then inpaint_route_parity, a batched CFG evaluation
+                  of the 9-channel UNet through both routes and fp32;
+22. monster_sample  `MonsterDiffusion("all")`, a 64-sprite sheet at 48px:
+                  the elucidated sampler (20 evaluations), dpm++ and linear
+                  multistep (10): finite images in [0, 1], no flash launch,
+                  s per sheet, ms per evaluation, a profiled evaluation;
+23. clip_resnet   `models.CLIP("RN50")` at 224px and `("RN50x4")` at 288px,
+                  bf16 against fp32 (5e-2), then 20 optimization steps of a
+                  224px `Raw` under `losses.CLIP("RN50")`: the loss falls,
+                  no flash launch;
+24. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
                   backward where it takes the head_dim (d <= 256), beside
@@ -193,6 +212,17 @@ PER_STEP = {
     "ldm_text2image": {"flash_fwd": 5, "flash_dq": 0, "flash_dkv": 0},
     "ldm_face": {"flash_fwd": 5, "flash_dq": 0, "flash_dkv": 0},
     "ldm_super_resolution": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # SD inpainting at 512px: the 9-channel UNet has SD-1.x's attention, so a
+    # batched CFG evaluation launches `sample`'s 10 and a CFG-guided step
+    # `guided_sample`'s 21 / 21 / 21 (two B = 1 evaluations and the decode,
+    # forward and backward); the masked-image and init encodes and the decode
+    # are counted apart, PER_VAE_CALL each
+    "inpaint_sample": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
+    "inpaint_guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
+    # MonsterDiffusion at 48px: attention at 24 x 24 and 12 x 12 tokens, per
+    # evaluation; the CLIP ResNets: the pool's one query over 50 / 82 keys
+    "monster_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "clip_resnet": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -243,6 +273,24 @@ LDM_TEXT2IMAGE_RUNS = (
 LDM_FACE_RUNS = (("ddim", {"n_steps": 10}),)
 LDM_SR_RUNS = (("ddim_eta1", {"n_steps": 10}),)
 LDM_SR_LOW_RES = 64
+# SD inpainting at 512px, batch 1, CFG 7, on a fixed synthetic image with its
+# left half masked (1 = paint): a 20-step DDIM with `replace_diffused`, then
+# 2 CFG-guided steps under the guided step's loss
+INPAINT_MODEL = "runwayml/stable-diffusion-inpainting"
+INPAINT_STEPS = 20
+INPAINT_GUIDED_STEPS = 2
+# outside the mask the final latents are the init latents diffused to the
+# last target index: |final - init| <= (1 - alpha) |init| + sigma |noise|,
+# with |noise| held to this many standard deviations
+KNOWN_REGION_NOISE_SIGMAS = 6.0
+# MonsterDiffusion "all" (48px sprites), a 64-sprite sheet: the elucidated
+# sampler at 20 evaluations, DPM-Solver++(2M) and linear multistep at 10
+MONSTER_BATCH = 64
+MONSTER_RUNS = (("sample", 20), ("dpm_solver_sample", 10), ("linear_multistep_sample", 10))
+# CLIP's ResNet towers at their published image sizes; 20 optimization steps
+# of a `Raw` drawer at RN50's 224px under `losses.CLIP("RN50")`
+CLIP_RESNETS = ("RN50", "RN50x4")
+RN_OPTIMIZE_STEPS = 20
 # bert-base-uncased has 30,522 entries; no vocabulary file is in the tree, so
 # a synthetic one of that size: a few real word pieces, then [unusedN]
 BERT_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "cat", "photo", "of", "##s", "the"]
@@ -756,6 +804,7 @@ class PartTimer:
 
     def __init__(self, fa, obj, names):
         self.fa, self.obj, self.calls = fa, obj, {name: [] for name in names}
+        self.last = {}  # each name's last result
         for name in names:
             setattr(obj, name, self._wrap(name, getattr(obj, name)))
 
@@ -770,6 +819,7 @@ class PartTimer:
             end.record()
             launched = {k: self.fa.LAUNCHES[k] - before[k] for k in before}
             self.calls[name].append((start, end, launched))
+            self.last[name] = out
             return out
 
         return timed
@@ -1681,6 +1731,286 @@ def phase_ldm_super_resolution(fa):
     return launches, measured
 
 
+def inpaint_inputs():
+    """The fixed synthetic init image (color ramps and a diagonal wave) and
+    its mask, 1 on the left half."""
+    import torch
+
+    ramp = torch.linspace(0.0, 1.0, IMAGE_SIZE, device="cuda")
+    y, x = torch.meshgrid(ramp, ramp, indexing="ij")
+    wave = 0.5 + 0.5 * torch.sin(2 * math.pi * (x + y) * 4)
+    image = torch.stack([x, y, wave])[None]
+    mask = torch.zeros((1, 1, IMAGE_SIZE, IMAGE_SIZE), device="cuda")
+    mask[..., : IMAGE_SIZE // 2] = 1.0
+    return image, mask
+
+
+def phase_inpaint_sample(fa, sd):
+    """`StableDiffusion(INPAINT_MODEL).sample` at 512px, CFG 7, a 20-step
+    DDIM with `replace_diffused` on the synthetic image: launches (10 per
+    batched UNet evaluation, PER_VAE_CALL per encode and decode: the uncond
+    and cond masked images, the init image, the decode), finite images
+    (their range is reported: like JAX's, the decode does not clamp), the
+    known region (outside the latent mask the final latents stay within
+    (1 - alpha) |init| + 6 sigma of the init latents), seconds per image, ms
+    per step, peak memory. Returns (launches, launches per evaluation)."""
+    import torch
+
+    image, mask = inpaint_inputs()
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+
+    def sample(n_steps):
+        return sd.sample([PROMPT], n_steps=n_steps, guidance_scale=CFG_SCALE, size=size,
+                         init_images=image, inpainting_masks=mask,
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+
+    sample(2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pairs = sd.schedule_indices(INPAINT_STEPS)
+    timer = PartTimer(fa, sd, ("conditioning", "sample_loop", "decode", "encode"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    images = sample(INPAINT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    timer.remove()
+    k = len(pairs)
+    measured = per_step(timer.launches("sample_loop"), k)
+    check_per_step("inpaint_sample", measured)
+    # the conditioning calls hold the two masked-image encodes
+    for part, calls in (("encode", 3), ("conditioning", 2), ("decode", 1)):
+        if timer.launches(part) != {name: n * calls for name, n in PER_VAE_CALL.items()}:
+            raise AssertionError(f"inpaint_sample: {part} launched {timer.launches(part)}")
+    if len(timer.calls["encode"]) != 3:
+        raise AssertionError(f"inpaint_sample: {len(timer.calls['encode'])} encodes")
+    outside = {name: launches[name] - timer.launches("sample_loop")[name]
+               - timer.launches("encode")[name] - timer.launches("decode")[name]
+               for name in launches}
+    if any(outside.values()):
+        raise AssertionError(f"inpaint_sample: launches outside the loop and the VAE {outside}")
+    if images.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not torch.isfinite(images).all():
+        raise AssertionError(f"inpaint_sample: images {tuple(images.shape)} not finite")
+    final, init = timer.last["sample_loop"], timer.last["encode"]
+    known = (sd.latent_masks(mask) == 0).expand_as(final)
+    to = int(pairs[-1, 1])
+    alpha, sigma = float(sd.schedule_alphas[to]), float(sd.schedule_sigmas[to])
+    bound = (1 - alpha) * float(init.abs().max()) + KNOWN_REGION_NOISE_SIGMAS * sigma
+    known_err = float((final - init)[known].abs().max())
+    if not (known.float().mean() > 0.4 and known_err <= bound):
+        raise AssertionError(f"inpaint_sample: known region {known_err} > {bound}")
+    loop_ms = timer.ms("sample_loop")
+    emit({
+        "phase": "inpaint_sample", "ok": True, "model": INPAINT_MODEL, "steps": k,
+        "guidance_scale": CFG_SCALE, "launches": launches, "launches_per_unet_eval": measured,
+        "vae_launches": {part: timer.launches(part) for part in ("encode", "decode")},
+        "images_shape": list(images.shape), "image_min": float(images.min()),
+        "image_max": float(images.max()), "image_mean": float(images.mean()),
+        "known_share": float(known.float().mean()), "known_region_max_abs_diff": known_err,
+        "known_region_bound": bound,
+        "painted_rel_l2_to_init": _rel_l2(final[~known], init[~known]),
+        "s_per_image": wall, "ms_per_sampling_step": loop_ms / k,
+        "text_and_mask_conditioning_ms": timer.ms("conditioning"),
+        "encode_ms": timer.ms("encode"), "decode_ms": timer.ms("decode"),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    })
+    return launches, measured
+
+
+def phase_inpaint_guided_sample(fa, sd, step):
+    """`engine.guided_sample` on the inpainting model with CFG 7 over
+    `Conditioning`s of the synthetic image and mask, guidance scale 0.5,
+    the guided step's loss, INPAINT_GUIDED_STEPS steps: 21 launches of each
+    kernel a step, finite latents and losses, ms per step, peak memory.
+    Returns (launches, launches per step)."""
+    import torch
+
+    from perceptor_tpu_torch.engine import guided_sample
+
+    image, mask = inpaint_inputs()
+    inpaint = dict(inpainting_masks=mask, inpainting_images=image)
+    uncond, cond = sd.conditioning([""], **inpaint), sd.conditioning([PROMPT], **inpaint)
+    latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE),
+                                         torch.Generator("cuda").manual_seed(3))
+    pairs = sd.schedule_indices(INPAINT_GUIDED_STEPS)
+    options = dict(conditioning=cond, uncond_conditioning=uncond, cfg_scale=CFG_SCALE,
+                   guidance_scale=0.5)
+    guided_sample(sd, [step.clip_loss], latents, pairs[:1], **options)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out, losses = guided_sample(sd, [step.clip_loss], latents, pairs, **options)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    k = len(pairs)
+    measured = per_step(launches, k)
+    check_per_step("inpaint_guided_sample", measured)
+    if not (torch.isfinite(out).all() and torch.isfinite(losses).all()):
+        raise AssertionError("inpaint_guided_sample: non-finite latents or losses")
+    emit({
+        "phase": "inpaint_guided_sample", "ok": True, "model": INPAINT_MODEL, "steps": k,
+        "pairs": pairs.tolist(), "guidance_scale": 0.5, "cfg_scale": CFG_SCALE,
+        "losses": losses.tolist(), "latents_shape": list(out.shape),
+        "ms_per_step": start.elapsed_time(end) / k, "wall_s": wall,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": measured,
+    })
+    return launches, measured
+
+
+def phase_inpaint_route_parity(sd) -> None:
+    """One batched CFG evaluation of the 9-channel UNet at 512px on the
+    synthetic image's conditionings: the kernel route against the plain
+    route and an fp32 copy, with route_parity's forward gates."""
+    import dataclasses
+
+    import torch
+
+    image, mask = inpaint_inputs()
+    inpaint = dict(inpainting_masks=mask, inpainting_images=image)
+    uncond, cond = sd.conditioning([""], **inpaint), sd.conditioning([PROMPT], **inpaint)
+    cond2 = dataclasses.replace(cond, encodings=torch.cat([uncond.encodings, cond.encodings]))
+    latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE),
+                                         torch.Generator("cuda").manual_seed(14))
+    unet_input = cond2.input(torch.cat([latents, latents]))
+    ts = torch.full((2,), 500.0, device="cuda")
+
+    def unet_cfg_out(unet, use_flash):
+        _set_route(unet, use_flash)
+        with torch.no_grad():
+            return (unet(unet_input, ts, cond2.encodings),)
+
+    torch.cuda.reset_peak_memory_stats()
+    results = compare_routes("inpaint_unet_cfg", sd.unet, unet_cfg_out, ("out",))
+    emit({"phase": "inpaint_route_parity", "ok": True, "metric": "relative L2 error",
+          "unet_input_shape": list(unet_input.shape),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), **results})
+
+
+def phase_monster_sample(fa):
+    """`MonsterDiffusion("all")`, a MONSTER_BATCH-sprite sheet at 48px, the
+    runs of MONSTER_RUNS: finite images in [0, 1] of the sheet's shape, no
+    flash launch; seconds per sheet, ms per network evaluation, peak
+    memory; one evaluation under the profiler. Returns (launches, launches
+    per evaluation)."""
+    import torch
+
+    from perceptor_tpu_torch.models import MonsterDiffusion
+
+    t0 = time.perf_counter()
+    md = MonsterDiffusion("all", device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    md.sample(MONSTER_BATCH, n_evaluations=4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    runs, evals = [], 0
+    for sampler, n_evaluations in MONSTER_RUNS:
+        timer = PartTimer(fa, md, ("denoised_",))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        images = getattr(md, sampler)(MONSTER_BATCH, n_evaluations=n_evaluations,
+                                      generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timer.remove()
+        n = len(timer.calls["denoised_"])
+        if images.shape != (MONSTER_BATCH, *md.shape) or not torch.isfinite(images).all():
+            raise AssertionError(f"monster_sample {sampler}: images {tuple(images.shape)}")
+        if float(images.min()) < 0 or float(images.max()) > 1:
+            raise AssertionError(f"monster_sample {sampler}: images outside [0, 1]")
+        runs.append({
+            "sampler": sampler, "n_evaluations": n_evaluations, "evaluations": n,
+            "s_per_sheet": wall, "ms_per_evaluation": timer.ms("denoised_") / n,
+            "images_shape": list(images.shape), "image_mean": float(images.mean()),
+            "image_std": float(images.std()), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        })
+        evals += n
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, evals)
+    check_per_step("monster_sample", measured)
+    noise = md.random_noise(MONSTER_BATCH, torch.Generator(device="cuda").manual_seed(5))
+
+    def evaluate():
+        with torch.no_grad():
+            md.denoised_(noise, 10.0)
+
+    emit({"phase": "monster_sample", "ok": True, "model": "all", "batch": MONSTER_BATCH,
+          "image_shape": list(md.shape), "build_s": build_s,
+          "parameters": sum(p.numel() for p in md.module.parameters()), "runs": runs,
+          "launches": launches, "evaluation_profile": profile_record(evaluate)})
+    return launches, measured
+
+
+def phase_clip_resnet(fa):
+    """CLIP's ResNet towers (`models.CLIP` of CLIP_RESNETS, bf16) on two
+    images at their native sizes against an fp32 copy (relative L2 within
+    TEXT_BF16_RTOL), embedding ms, parameters; then RN_OPTIMIZE_STEPS steps
+    of `engine.optimize` on a 224px `Raw` drawer under `losses.CLIP("RN50")`
+    with the prompt: the loss falls, no flash launch. Returns (launches,
+    launches per optimization step)."""
+    import copy
+
+    import torch
+
+    from perceptor_tpu_torch import drawers, losses, models
+
+    fa.reset_launches()
+    towers = {}
+    for name in CLIP_RESNETS:
+        clip = models.CLIP(name)
+        size = clip.config.image_size
+        images = torch.rand((2, 3, *size), generator=torch.Generator("cuda").manual_seed(15),
+                            device="cuda")
+        normalized = (images - clip._mean) / clip._std
+        with torch.no_grad():
+            encodings = clip.module.encode_image(normalized)
+            reference = copy.deepcopy(clip.module.visual).float()(normalized)
+        err = _rel_l2(encodings, reference)
+        if not (torch.isfinite(encodings).all() and err <= TEXT_BF16_RTOL):
+            raise AssertionError(f"clip_resnet {name}: bf16 vs fp32 relative L2 {err}")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        times = []
+        for _ in range(5):
+            start.record()
+            clip.encode_images(images)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        towers[name] = {
+            "image_size": list(size), "encodings_shape": list(encodings.shape),
+            "visual_parameters": sum(p.numel() for p in clip.module.visual.parameters()),
+            "bf16_vs_fp32_rel_l2": err, "tol": TEXT_BF16_RTOL,
+            "encode_images_ms": sorted(times)[2],
+        }
+        del clip, reference
+        torch.cuda.empty_cache()
+    embedding_launches = dict(fa.LAUNCHES)
+    if any(embedding_launches.values()):
+        raise AssertionError(f"clip_resnet: flash launches {embedding_launches}")
+    loss = losses.CLIP("RN50").add_texts_([PROMPT])
+    size = loss.model.config.image_size
+    drawer = drawers.Raw.random_fractal_image((1, 3, *size), seed=0)
+    record = run_optimize(fa, "clip_resnet RN50", drawer, [loss], RN_OPTIMIZE_STEPS)
+    launches = record["flash_launches"]
+    measured = per_step(launches, RN_OPTIMIZE_STEPS)
+    check_per_step("clip_resnet", measured)
+    emit({"phase": "clip_resnet", "ok": True, "towers": towers, "prompt": PROMPT,
+          "optimize_rn50": record, "profile": step_profile(drawer, [loss])})
+    return launches, measured
+
+
 def phase_timings(fa, peak_flops, peak_bw) -> list:
     """Kernel, plain version, SDPA and the fused flash backward per site,
     and the bound."""
@@ -1806,6 +2136,9 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
                 "sample": sum(r["ms"] * r["per_step"] for r in sampling),
                 "guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 "guided_sample_text": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
+                # the 9-channel UNet has SD-1.x's sites
+                "inpaint_sample": sum(r["ms"] * r["per_step"] for r in sampling),
+                "inpaint_guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 # per UNet evaluation (forward only) and per guided step
                 "adm_sample": adm if name == "flash_fwd" else 0.0,
                 "adm_guided_sample": adm,
@@ -1865,6 +2198,17 @@ def main() -> int:
     launches["sample_deepcache"], deepcache_measured = phase_sample_deepcache(fa, sd)
     measured.update(deepcache_measured)
     launches["guided_sample"], measured["guided_sample"] = phase_guided_sample(fa, sd, step)
+    del sd
+    torch.cuda.empty_cache()
+    # SD inpainting; its guided phase shares the guided step's loss
+    t0 = time.perf_counter()
+    sd = StableDiffusion(INPAINT_MODEL, device="cuda", seed=0)
+    emit({"phase": "inpaint_build", "ok": True, "model": INPAINT_MODEL,
+          "seconds": time.perf_counter() - t0})
+    launches["inpaint_sample"], measured["inpaint_sample"] = phase_inpaint_sample(fa, sd)
+    launches["inpaint_guided_sample"], measured["inpaint_guided_sample"] = (
+        phase_inpaint_guided_sample(fa, sd, step))
+    phase_inpaint_route_parity(sd)
     # the optimization phases' peaks are their own: no diffusion model loaded
     del step, sd
     torch.cuda.empty_cache()
@@ -1894,7 +2238,9 @@ def main() -> int:
     del clip
     torch.cuda.empty_cache()
     # the latent-diffusion family, one model at a time
-    for phase in (phase_ldm_text2image, phase_ldm_face, phase_ldm_super_resolution):
+    # then MonsterDiffusion and CLIP's ResNet towers
+    for phase in (phase_ldm_text2image, phase_ldm_face, phase_ldm_super_resolution,
+                  phase_monster_sample, phase_clip_resnet):
         path = phase.__name__.removeprefix("phase_")
         launches[path], measured[path] = phase(fa)
         torch.cuda.empty_cache()

@@ -6,6 +6,7 @@ converters (perceptor_tpu/models/stable_diffusion/convert.py,
 perceptor_tpu/models/clip/convert.py,
 perceptor_tpu/models/guided_diffusion/convert.py,
 perceptor_tpu/models/velocity_diffusion/convert.py,
+perceptor_tpu/models/monster_diffusion/convert.py,
 perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py):
 
     conv   (kh, kw, I, O) -> (O, I, kh, kw)
@@ -13,11 +14,11 @@ perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py):
     norm   scale          -> weight
 
 The port's keys are diffusers' (UNet, VAE, the VQ stage's backbone),
-open_clip's (CLIP), OpenAI guided_diffusion's (ADM; CompVis's for its
-spatial transformers) and x-transformer's (BERT), so the JAX package's own
-`unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the two
-`from_torch` and `convert_bert` map these state_dicts back to the same
-trees.
+open_clip's (CLIP, both image towers), OpenAI guided_diffusion's (ADM;
+CompVis's for its spatial transformers), k-diffusion's (MonsterDiffusion)
+and x-transformer's (BERT), so the JAX package's own `unet_from_diffusers`,
+`vae_from_diffusers`, `from_openclip`, the three `from_torch` and
+`convert_bert` map these state_dicts back to the same trees.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ import torch
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
 from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
 from perceptor_tpu_torch.models.latent_diffusion.bert import BERTConfig
+from perceptor_tpu_torch.models.monster_diffusion.net import MonsterConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
+from perceptor_tpu_torch.ops.upfirdn import fir_taps
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -209,9 +212,41 @@ def _transformer(p: Mapping, prefix: str, layers: int, sd: StateDict) -> None:
         _linear(bp["mlp"]["fc2"], f"{block}.mlp.c_proj", sd)
 
 
+def _batch_norm(p: Mapping, prefix: str, sd: StateDict) -> None:
+    _norm(p, prefix, sd)
+    sd[f"{prefix}.running_mean"] = _t(p["mean"])
+    sd[f"{prefix}.running_var"] = _t(p["var"])
+
+
+def _modified_resnet_visual(visual: Mapping, cfg: CLIPConfig) -> StateDict:
+    """Flax `ModifiedResNet` params -> open_clip's `visual.*` names (the
+    inverse of the JAX converter's `_modified_resnet_visual`)."""
+    sd: StateDict = {}
+    for i in (1, 2, 3):
+        _conv(visual[f"conv{i}"], f"visual.conv{i}", sd)
+        _batch_norm(visual[f"bn{i}"], f"visual.bn{i}", sd)
+    for stage, count in enumerate(cfg.vision_layers):
+        for i in range(count):
+            block, prefix = visual[f"layer{stage + 1}_{i}"], f"visual.layer{stage + 1}.{i}"
+            for j in (1, 2, 3):
+                _conv(block[f"conv{j}"], f"{prefix}.conv{j}", sd)
+                _batch_norm(block[f"bn{j}"], f"{prefix}.bn{j}", sd)
+            if "downsample_conv" in block:
+                _conv(block["downsample_conv"], f"{prefix}.downsample.0", sd)
+                _batch_norm(block["downsample_bn"], f"{prefix}.downsample.1", sd)
+    pool = visual["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(pool[name], f"visual.attnpool.{name}", sd)
+    return sd
+
+
 def clip_visual_state_dict_from_jax(visual: Mapping, cfg: CLIPConfig) -> StateDict:
-    """Flax `VisionTransformer` params (`params["visual"]`) -> the port's
-    open_clip-named `visual.*` state_dict."""
+    """Flax `VisionTransformer` or `ModifiedResNet` params
+    (`params["visual"]`) -> the port's open_clip-named `visual.*`
+    state_dict."""
+    if cfg.is_resnet:
+        return _modified_resnet_visual(visual, cfg)
     sd: StateDict = {}
     sd["visual.conv1.weight"] = _t(np.asarray(visual["conv1"]["kernel"]).transpose(3, 2, 0, 1))
     sd["visual.class_embedding"] = _t(visual["class_embedding"])
@@ -394,3 +429,48 @@ def vq_diffusion_state_dicts_from_jax(
         "unet": adm_state_dict_from_jax(params["unet"], unet_cfg),
         "first_stage": vq_state_dict_from_jax(params["first_stage"], vq_cfg),
     }
+
+
+def monster_state_dict_from_jax(params: Mapping, cfg: MonsterConfig) -> StateDict:
+    """Flax `MonsterUNet` params -> state_dict of the port's (k-diffusion
+    named) MonsterUNet, the resamplers' fixed `kernel` buffers included;
+    the inverse of the JAX package's `monster_diffusion/convert.py
+    from_torch`."""
+    sd: StateDict = {"timestep_embed.weight": _t(params["timestep_embed"]["weight"])}
+    _linear(params["mapping_cond"], "mapping_cond", sd)
+    _linear(params["mapping_0"], "mapping.0", sd)
+    _linear(params["mapping_1"], "mapping.2", sd)
+    _conv(params["proj_in"], "proj_in", sd)
+    _conv(params["proj_out"], "proj_out", sd)
+    levels = len(cfg.depths)
+
+    def blocks(kind, i, prefix, first):
+        index = first
+        for j in range(cfg.depths[i]):
+            res, block = params[f"{kind}_{i}_res_{j}"], f"{prefix}.{index}"
+            _linear(res["norm1"]["mapper"], f"{block}.main.0.mapper", sd)
+            _conv(res["conv1"], f"{block}.main.2", sd)
+            _linear(res["norm2"]["mapper"], f"{block}.main.4.mapper", sd)
+            _conv(res["conv2"], f"{block}.main.6", sd)
+            if "skip" in res:
+                _conv(res["skip"], f"{block}.skip", sd)
+            index += 1
+            if cfg.self_attn_depths[i]:
+                attn, block = params[f"{kind}_{i}_attn_{j}"], f"{prefix}.{index}"
+                _linear(attn["norm_in"]["mapper"], f"{block}.norm_in.mapper", sd)
+                _conv(attn["qkv_proj"], f"{block}.qkv_proj", sd)
+                _conv(attn["out_proj"], f"{block}.out_proj", sd)
+                index += 1
+        return index
+
+    for i in range(levels):  # [Identity, Downsample2d below level 0, blocks]
+        prefix = f"u_net.d_blocks.{i}"
+        if i > 0:
+            sd[f"{prefix}.1.kernel"] = fir_taps("linear")
+        blocks("d", i, prefix, 2 if i > 0 else 1)
+    for k, i in enumerate(reversed(range(levels))):  # innermost first; [blocks, Upsample2d]
+        prefix = f"u_net.u_blocks.{k}"
+        end = blocks("u", i, prefix, 0)
+        if i > 0:
+            sd[f"{prefix}.{end}.kernel"] = fir_taps("linear", gain=2.0)
+    return sd

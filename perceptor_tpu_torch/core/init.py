@@ -42,7 +42,12 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     zero, 1-D norm weights one, scalars (CLIP's `logit_scale`) one standard
     normal draw. fan_in is the input size of a conv/linear weight (torch
     layout), else the product of all but the last dim (the flax layout of
-    `proj` and `positional_embedding`)."""
+    `proj` and `positional_embedding`). Buffers are no weights: a module
+    that holds some fills them in its own `reset_buffers()` (BatchNorm
+    statistics, fixed FIR taps)."""
+    for submodule in module.modules():
+        if hasattr(submodule, "reset_buffers"):
+            submodule.reset_buffers()
     for name, param in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if param.ndim == 0:

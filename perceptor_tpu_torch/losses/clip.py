@@ -15,7 +15,7 @@ class CLIP(PromptBankLoss):
     def __init__(self, name="ViT-B-32", precision=None, jit=None, **kwargs):
         """
         Args:
-            name: CLIP model name (ViT-B-32, ViT-B-16, ViT-L-14, ViT-L-14-336, ...)
+            name: CLIP model name (RN50, RN50x4, ..., ViT-B-32, ViT-B-16, ViT-L-14, ...)
             jit: accepted for callers of the JAX package's signature and dropped
             kwargs: `config`, `tokenizer`, `device`, `seed` of `models.OpenCLIP`
         """

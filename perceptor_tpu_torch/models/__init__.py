@@ -11,12 +11,13 @@ _EXPORTS = {
     "StableDiffusion": ("perceptor_tpu_torch.models.stable_diffusion", "StableDiffusion"),
     "GuidedDiffusion": ("perceptor_tpu_torch.models.guided_diffusion", "GuidedDiffusion"),
     "VelocityDiffusion": ("perceptor_tpu_torch.models.velocity_diffusion", "VelocityDiffusion"),
+    "MonsterDiffusion": ("perceptor_tpu_torch.models.monster_diffusion", "MonsterDiffusion"),
     # the subpackage itself (Text2Image, Face, SuperResolution, ...)
     "latent_diffusion": ("perceptor_tpu_torch.models.latent_diffusion", None),
 }
 
 _NOT_PORTED = (
-    "MonsterDiffusion", "DeepImagePrior", "VGG19",
+    "DeepImagePrior", "VGG19",
     "SuperResolution", "MidasDepth", "AdaBinsDepth", "SimulacraAesthetic",
     "AestheticVisualAssessment", "BLIP", "CLOOB", "SLIP", "LiT", "ResMem", "RuCLIP",
     "GlideCLIP", "OWLViT", "StyleGANXL", "TransformersOpenAICLIP",

@@ -2,8 +2,9 @@
 perceptor_tpu/models/clip/configs.py).
 
 Mirrors the (architecture, weights) combinations documented in the reference
-wrapper (reference perceptor/models/open_clip.py:22-44) for the ViT family.
-Config values follow the public open_clip model configs for those names.
+wrapper (reference perceptor/models/open_clip.py:22-44), the ModifiedResNet
+and the ViT families. Config values follow the public open_clip model
+configs for those names.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""CLIP with ViT image tower and text tower (counterpart of
-perceptor_tpu/models/clip/model.py `VisionTransformer`, `TextTransformer`
-and `CLIP`).
+"""CLIP with a ViT or ModifiedResNet image tower and the text tower
+(counterpart of perceptor_tpu/models/clip/model.py `VisionTransformer`,
+`TextTransformer` and `CLIP`; the ResNet is `models/clip/resnet.py`).
 
 Module names follow open_clip (`visual.conv1`, `visual.class_embedding`,
 `visual.transformer.resblocks.{i}.attn.in_proj_weight`, ...,
@@ -14,8 +14,9 @@ patches). The text tower runs under a causal mask, so its attention always
 takes the plain dot-product route (`ops/attention.flash_route`), and pools
 at the end-of-text token, the largest id of each row. Token ids must lie
 in [0, vocab_size): out-of-range ids raise a ValueError (JAX's gather would
-clamp them silently, and a CUDA gather would fault). The ModifiedResNet
-image towers are not ported.
+clamp them silently, and a CUDA gather would fault). A config whose
+`vision_layers` is a tuple (RN50 ... RN50x64) builds the ModifiedResNet
+tower under the same `visual.` prefix.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
+from perceptor_tpu_torch.models.clip.resnet import ModifiedResNet
 from perceptor_tpu_torch.ops.attention import attention, causal_mask
 from perceptor_tpu_torch.ops.layers import Conv2d, LayerNorm, Linear
 
@@ -94,8 +96,6 @@ class Transformer(nn.Module):
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
-        if cfg.is_resnet:
-            raise NotImplementedError("only ViT CLIP image towers are ported")
         width, grid = cfg.vision_width, cfg.image_size[0] // cfg.patch_size
         self.patch_size = cfg.patch_size
         self.conv1 = Conv2d(3, width, cfg.patch_size, stride=cfg.patch_size, bias=False)
@@ -177,7 +177,11 @@ class CLIP(TextTransformer):
     def __init__(self, config: CLIPConfig):
         nn.Module.__init__(self)
         self.config = config
-        self.visual = VisionTransformer(config)
+        self.visual = (
+            ModifiedResNet(config.vision_layers, config.embed_dim, config.vision_heads,
+                           config.image_size[0], config.vision_width)
+            if config.is_resnet else VisionTransformer(config)
+        )
         self._build_text(config)
         self.logit_scale = nn.Parameter(torch.tensor(2.6592))
 

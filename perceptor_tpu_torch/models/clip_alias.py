@@ -22,7 +22,7 @@ _QUICKGELU_FIXUP = {
 def CLIP(name: str = "ViT-B-32", precision=None, jit=None, **kwargs):
     """
     Args:
-        name: CLIP model name (ViT-B-32, ViT-B-16, ViT-L-14, ViT-L-14-336, ...)
+        name: CLIP model name (RN50, RN50x4, ..., ViT-B-32, ViT-B-16, ViT-L-14, ...)
         jit: accepted for callers of the JAX package's signature and
             dropped: the towers run eagerly
         kwargs: `config`, `tokenizer`, `device`, `seed` of `OpenCLIP`

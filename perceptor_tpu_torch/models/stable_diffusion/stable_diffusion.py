@@ -10,7 +10,12 @@
     (`eta` for the stochastic variant) or DPM-Solver++(2M), img2img
     (`init_images` + `from_index`), RePaint resampling (`n_resample`) and
     DeepCache (`cache_interval`: the UNet's deep levels rerun every k-th
-    step and are reused in between);
+    step and are reused in between) and, with the inpainting checkpoint,
+    inpainting (`inpainting_masks`; `replace_diffused` re-injects the known
+    region after every step);
+  - `conditioning(texts, inpainting_masks, inpainting_images)`: the text
+    encodings, or for the 9-channel inpainting UNet a `Conditioning` that
+    also carries the blurred latent mask and the masked image's latents;
   - `finetuneable_vae()`: VAE gradients on inside, the frozen weights
     restored on exit.
 
@@ -24,20 +29,21 @@ checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
 `load_state_dicts` takes real or converted weights
 (`convert.stable_diffusion_state_dicts_from_jax`).
 
-Not ported (ROADMAP queue A): inpainting (`Conditioning`, latent masks,
-`replace_diffused`, the 9-channel UNet), `mesh`/`rules`, `prime`, the
-`export_*` programs and checkpoint discovery. An original CompVis
+Not ported (ROADMAP queue A): `mesh`/`rules`, `prime`, the `export_*`
+programs and checkpoint discovery. An original CompVis
 checkpoint's UNet keys map onto `UNet` through
 `models/stable_diffusion/convert.py compvis_to_diffusers_unet`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from contextlib import contextmanager
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE
 from perceptor_tpu_torch.core.init import random_module, resolve_device
@@ -47,7 +53,9 @@ from perceptor_tpu_torch.models.stable_diffusion.text_encoder import CLIPTextEnc
 from perceptor_tpu_torch.models.stable_diffusion.unet import UNet
 from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
 from perceptor_tpu_torch.ops.clamp import clamp_with_grad
+from perceptor_tpu_torch.ops.resize import interpolate_bilinear
 from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions
+from perceptor_tpu_torch.predictions import base as prediction_base
 from perceptor_tpu_torch.schedules import indexed_schedule, scaled_linear_alphas_sigmas
 
 # Published SD-1.x linear latent -> RGB preview factors (rows: the 4 latent
@@ -65,6 +73,50 @@ _LATENT_RGB_FACTORS = np.array(
 METHODS = ("ddim", "dpm++")
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Conditioning:
+    """Text-encoder states plus, for the inpainting UNet, the blurred
+    latent mask (N|1, 1, h, w) and the masked image's latents (N|1, 4, h, w)
+    that extend its input to 9 channels."""
+
+    model_name: str
+    encodings: torch.Tensor
+    inpainting_latent_masks: Optional[torch.Tensor] = None
+    inpainting_latents: Optional[torch.Tensor] = None
+
+    def __neg__(self) -> "Conditioning":
+        """Negated encodings; the mask and latents stay."""
+        return dataclasses.replace(self, encodings=-self.encodings)
+
+    def input(self, diffused_latents: torch.Tensor) -> torch.Tensor:
+        """The UNet input: the latents alone, or [latents, the mask binarized
+        at 0.5, the masked latents] on dim 1, broadcast over the batch."""
+        if self.inpainting_latent_masks is None:
+            return diffused_latents
+        n, dtype = diffused_latents.shape[0], diffused_latents.dtype
+        masks = (self.inpainting_latent_masks >= 0.5).to(dtype)
+        latents = self.inpainting_latents.to(dtype)
+        return torch.cat(
+            [diffused_latents, masks.expand(n, *masks.shape[1:]),
+             latents.expand(n, *latents.shape[1:])],
+            dim=1,
+        )
+
+
+def _gaussian_blur(images: torch.Tensor, sigma: float) -> torch.Tensor:
+    """kornia's gaussian_blur2d: kernel size int(2 sigma) + 1, a normalized
+    Gaussian, reflect padding, two depthwise 1-D passes (H, then W)."""
+    size = int(sigma * 2) + 1
+    xs = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
+    kernel = np.exp(-0.5 * (xs / sigma) ** 2)
+    kernel = torch.as_tensor((kernel / kernel.sum()).astype(np.float32), device=images.device)
+    pad, c = size // 2, images.shape[1]
+    out = F.pad(images, (0, 0, pad, pad), mode="reflect")
+    out = F.conv2d(out, kernel.reshape(1, 1, size, 1).expand(c, 1, size, 1), groups=c)
+    out = F.pad(out, (pad, pad, 0, 0), mode="reflect")
+    return F.conv2d(out, kernel.reshape(1, 1, 1, size).expand(c, 1, 1, size), groups=c)
+
+
 class StableDiffusion:
     def __init__(
         self,
@@ -74,12 +126,13 @@ class StableDiffusion:
         device="cuda",
         seed: int = 0,
     ):
-        """`name` is "tiny" or a key of `config.MODEL_CONFIGS`; `fp16`
-        stores matmul/conv weights in bf16 (bf16 compute); weights are
-        random from `seed`; `device` is CUDA unless the caller passes
-        "cpu"."""
-        if name == "tiny":
-            configs = (sd_config.TINY_UNET, sd_config.TINY_VAE, sd_config.TINY_TEXT)
+        """`name` is "tiny", "tiny-inpainting" or a key of
+        `config.MODEL_CONFIGS`; `fp16` stores matmul/conv weights in bf16
+        (bf16 compute); weights are random from `seed`; `device` is CUDA
+        unless the caller passes "cpu"."""
+        if name in ("tiny", "tiny-inpainting"):
+            unet = sd_config.TINY_UNET if name == "tiny" else sd_config.TINY_INPAINT_UNET
+            configs = (unet, sd_config.TINY_VAE, sd_config.TINY_TEXT)
         elif name in sd_config.MODEL_CONFIGS:
             configs = sd_config.MODEL_CONFIGS[name]
         else:
@@ -135,14 +188,21 @@ class StableDiffusion:
             indices = indices.expand(batch)
         return indices
 
+    def _unet(self, latents, ts, conditioning, **kwargs) -> torch.Tensor:
+        """The UNet under text encodings or a `Conditioning` (whose input
+        assembly gives the inpainting UNet its 9 channels)."""
+        if isinstance(conditioning, Conditioning):
+            return self.unet(conditioning.input(latents), ts, conditioning.encodings, **kwargs)
+        return self.unet(latents, ts, conditioning, **kwargs)
+
     def predictions(
         self, diffused_latents, indices, conditioning
     ) -> LatentIndexedEpsPredictions:
         """UNet eps prediction at schedule `indices` under text encodings
-        `conditioning` (N, 77, context_dim)."""
+        (N, 77, context_dim) or a `Conditioning`."""
         indices = self._indices(indices, diffused_latents.shape[0])
         return self._make_predictions(
-            diffused_latents, indices, self.unet(diffused_latents, indices.float(), conditioning)
+            diffused_latents, indices, self._unet(diffused_latents, indices.float(), conditioning)
         )
 
     def _make_predictions(self, latents, indices, noise) -> LatentIndexedEpsPredictions:
@@ -197,12 +257,46 @@ class StableDiffusion:
         return clamp_with_grad(rgb * 0.5 + 0.5, 0.0, 1.0)
 
     @torch.no_grad()
-    def conditioning(self, texts: Sequence[str]) -> torch.Tensor:
-        """texts -> (N, 77, width) fp32 text-encoder states."""
-        if self.unet_config.in_channels != self.vae_config.latent_channels:
-            raise NotImplementedError("the inpainting UNet is not ported")
+    def latent_masks(self, masks, blur: Optional[float] = 4.0) -> torch.Tensor:
+        """masks (N, 1, H, W) in [0, 1] -> (N, 1, H/8, W/8) fp32: a Gaussian
+        blur of `blur` sigma (none when None or 0), then a bilinear resize
+        with half-pixel centers."""
+        masks = torch.as_tensor(masks, dtype=torch.float32, device=self.device)
+        n, c, h, w = masks.shape
+        self._check_size((h, w))
+        if c != 1:
+            raise ValueError("Masks must be 1-channel")
+        if float(masks.max()) > 1 or float(masks.min()) < 0:
+            raise ValueError("Masks must be between 0 and 1")
+        if blur is not None and blur > 0:
+            masks = _gaussian_blur(masks, blur)
+        down = self.vae_config.downscale
+        return interpolate_bilinear(masks, (h // down, w // down), align_corners=False)
+
+    @property
+    def inpainting(self) -> bool:
+        """The 9-channel UNet: latents, mask, masked-image latents."""
+        return self.unet_config.in_channels == 2 * self.vae_config.latent_channels + 1
+
+    @torch.no_grad()
+    def conditioning(self, texts: Sequence[str], inpainting_masks=None, inpainting_images=None,
+                     mask_blur: float = 4.0):
+        """texts -> (N, 77, width) fp32 text-encoder states; for the
+        inpainting checkpoint a `Conditioning` with them, the latent masks
+        of `inpainting_masks` and the posterior mode of the masked images
+        (pixels where the unblurred mask exceeds 0.5 set to 0.5)."""
         tokens = tokenize(list(texts), self.text_config.context_length, tokenizer=self.tokenizer)
-        return self.text_encoder(torch.from_numpy(tokens).to(self.device))
+        encodings = self.text_encoder(torch.from_numpy(tokens).to(self.device))
+        if not self.inpainting:
+            return encodings
+        if inpainting_masks is None or inpainting_images is None:
+            raise ValueError("the inpainting checkpoint needs inpainting_masks and "
+                             "inpainting_images")
+        masks = torch.as_tensor(inpainting_masks, dtype=torch.float32, device=self.device)
+        images = torch.as_tensor(inpainting_images, dtype=torch.float32, device=self.device)
+        latent_masks = self.latent_masks(masks, mask_blur)
+        masked = images * (masks <= 0.5) + 0.5 * (masks > 0.5)
+        return Conditioning(self.name, encodings, latent_masks, self.encode(masked))
 
     def diffuse_latents(self, latents, indices, generator: torch.Generator) -> torch.Tensor:
         """q-sample: alpha * x0 + sigma * noise."""
@@ -249,6 +343,9 @@ class StableDiffusion:
         init_images=None,
         method: str = "ddim",
         cache_interval: int = 1,
+        inpainting_masks=None,
+        mask_blur: float = 4.0,
+        replace_diffused: bool = True,
     ) -> torch.Tensor:
         """Text -> images (N, 3, H, W) in [0, 1], fp32.
 
@@ -261,39 +358,54 @@ class StableDiffusion:
         DeepCache: step i runs the whole UNet when i % cache_interval == 0
         and otherwise only its shallowest level on the cached deep feature
         (fewer FLOPs at a small quality cost; 1, the default, is exact;
-        `n_resample` is refused with it)."""
+        `n_resample` is refused with it).
+
+        The inpainting checkpoint takes `inpainting_masks` (N, 1, H, W),
+        1 where to paint, with `init_images` the pictures to paint into;
+        `mask_blur` is the latent mask's Gaussian sigma in pixels, and
+        `replace_diffused` puts the init latents, diffused to each step's
+        target index, back outside that mask after every step."""
         self._check_method(method, eta, n_resample, cache_interval)
-        generator, uncond, cond, pairs, latents = self._setup(
-            texts, negative_texts, n_steps, size, generator, from_index, to_index, init_images
+        generator, uncond, cond, pairs, latents, init_latents = self._setup(
+            texts, negative_texts, n_steps, size, generator, from_index, to_index, init_images,
+            inpainting_masks, mask_blur,
         )
         latents = self.sample_loop(
             latents, pairs, uncond, cond, guidance_scale, eta=eta, generator=generator,
             n_resample=n_resample, method=method, cache_interval=cache_interval,
+            init_latents=init_latents, replace_diffused=replace_diffused,
         )
         return self.decode(latents)
 
     def _setup(
         self, texts, negative_texts, n_steps, size, generator,
-        from_index=999, to_index=0, init_images=None,
+        from_index=999, to_index=0, init_images=None, inpainting_masks=None, mask_blur=4.0,
     ):
         """The sampler's inputs: the generator (seeded 0 on the model's
         device by default), the uncond (negative or empty prompts) and cond
-        encodings, the schedule pairs and the initial latents (random, or
-        `init_images` encoded and diffused to the first index)."""
+        conditionings, the schedule pairs, the initial latents (random, or
+        `init_images` encoded and diffused to the first index) and the init
+        latents (None without `init_images`). The VAE encodes in JAX's
+        order: the uncond and cond masked images, then `init_images`."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         texts = list(texts)
-        uncond = self.conditioning(list(negative_texts) if negative_texts else [""] * len(texts))
-        cond = self.conditioning(texts)
+        inpaint = dict(inpainting_masks=inpainting_masks, inpainting_images=init_images,
+                       mask_blur=mask_blur)
+        uncond = self.conditioning(
+            list(negative_texts) if negative_texts else [""] * len(texts), **inpaint)
+        cond = self.conditioning(texts, **inpaint)
         pairs = self.schedule_indices(n_steps, from_index=from_index, to_index=to_index)
         if init_images is None:
             if from_index != 999:
                 raise ValueError("init_images must be provided if from_index < 999")
             latents = self.random_diffused_latents((len(texts), *size), generator)
+            init_latents = None
         else:
             init_images = torch.as_tensor(init_images, dtype=torch.float32, device=self.device)
-            latents = self.diffuse_latents(self.encode(init_images), int(pairs[0, 0]), generator)
-        return generator, uncond, cond, pairs, latents
+            init_latents = self.encode(init_images)
+            latents = self.diffuse_latents(init_latents, int(pairs[0, 0]), generator)
+        return generator, uncond, cond, pairs, latents, init_latents
 
     @staticmethod
     def _check_method(method: str, eta, n_resample: int, cache_interval: int = 1) -> None:
@@ -307,10 +419,11 @@ class StableDiffusion:
     def cfg_predictions(self, latents, from_idx, context2, guidance_scale, cache=None,
                         return_cache=False):
         """CFG predictions from one batched UNet call on the (uncond, cond)
-        pair; `context2` is the uncond and cond encodings concatenated.
+        pair; `context2` is the uncond and cond encodings concatenated, or a
+        `Conditioning` of them (with the cond's mask and masked latents).
         `cache` / `return_cache` pass through to the UNet's DeepCache
         branch; with `return_cache` the result is (predictions, cache)."""
-        noise2 = self.unet(
+        noise2 = self._unet(
             torch.cat([latents, latents]), torch.cat([from_idx, from_idx]).float(), context2,
             cache=cache, return_cache=return_cache,
         )
@@ -336,25 +449,34 @@ class StableDiffusion:
         n_resample: int = 0,
         method: str = "ddim",
         cache_interval: int = 1,
+        init_latents: Optional[torch.Tensor] = None,
+        replace_diffused: bool = True,
     ) -> torch.Tensor:
         """The sampler from given diffused latents: for each (from, to)
         pair of `pairs`, `n_resample` RePaint iterations, then one CFG
         prediction (through the DeepCache partial pass on the steps
         `cache_interval` skips) and a DDIM (or DPM-Solver++(2M)) step.
-        Returns the final latents."""
+        `uncond` and `cond` are encodings or `Conditioning`s; when `cond`
+        carries an inpainting mask and `init_latents` are given,
+        `replace_diffused` re-injects them outside the mask after each
+        step. Returns the final latents."""
         self._check_method(method, eta, n_resample, cache_interval)
         for latents, _ in self._steps(
             latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample, method,
-            cache_interval,
+            cache_interval, init_latents, replace_diffused,
         ):
             pass
         return latents
 
     def _steps(self, latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample,
-               method, cache_interval=1):
+               method, cache_interval=1, init_latents=None, replace_diffused=False):
         """Yields (latents, CFG predictions) after each (from, to) pair."""
         n = latents.shape[0]
-        context2 = torch.cat([uncond, cond])
+        context2 = torch.cat([getattr(c, "encodings", c) for c in (uncond, cond)])
+        masks = getattr(cond, "inpainting_latent_masks", None)
+        if masks is not None:  # the cond's mask and masked latents serve both halves
+            context2 = dataclasses.replace(cond, encodings=context2)
+        replace = replace_diffused and masks is not None and init_latents is not None
         pairs = torch.as_tensor(np.asarray(pairs), device=self.device).long()
         prev_x0, prev_h = torch.zeros_like(latents), torch.ones((n, 1, 1, 1), device=self.device)
         cache = None  # step 0 runs the whole UNet
@@ -375,6 +497,11 @@ class StableDiffusion:
                 prev_x0 = predictions.denoised_xs
             else:
                 latents = predictions.step(to_idx, eta=eta, generator=generator)
+            if replace:  # the known region, diffused to the step's target
+                alphas = self.schedule_alphas[to_idx][:, None, None, None]
+                sigmas = self.schedule_sigmas[to_idx][:, None, None, None]
+                fresh = prediction_base.randn_like(latents, generator)
+                latents = (init_latents * alphas + fresh * sigmas) * (1 - masks) + latents * masks
             yield latents, predictions
 
     @torch.no_grad()
@@ -389,7 +516,7 @@ class StableDiffusion:
     ):
         """Generator yielding the CFG predictions of each DDIM step, for
         callbacks and previews; `sample()` gives the images."""
-        generator, uncond, cond, pairs, latents = self._setup(
+        generator, uncond, cond, pairs, latents, _ = self._setup(
             texts, negative_texts, n_steps, size, generator
         )
         for _, predictions in self._steps(

@@ -1,12 +1,13 @@
-"""Differentiable antialiased resize, ResizeRight semantics (counterpart of
-perceptor_tpu/ops/resize.py:34-225).
+"""Differentiable antialiased resize, ResizeRight semantics, and plain
+bilinear interpolation (counterpart of perceptor_tpu/ops/resize.py).
 
 The dense per-dimension weight matrices are built on the host in numpy,
 exactly as the JAX module builds them; the resize is two fp32 matmuls
 whose adjoint autograd derives. fp32 matmuls must run in full fp32, not
 TF32: `core.init.resolve_device`, which every entry point calls, sets
 `torch.backends.cuda.matmul.allow_tf32 = False` explicitly (the JAX code
-insists on `Precision.HIGHEST`).
+insists on `Precision.HIGHEST`). `interpolate_bilinear` keeps its device
+matrices cached per (shape, align_corners, device).
 """
 
 from __future__ import annotations
@@ -185,3 +186,61 @@ def resize(
     if out_shape[1] != in_w or scale_factors[1] != 1.0:
         out = torch.matmul(out, ww.T)  # (..., out_H, W) x (W, out_W)
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Bilinear (out_size, in_size) weights on the align_corners=True grid
+    (F.interpolate(..., align_corners=True))."""
+    if out_size == 1 or in_size == 1:
+        matrix = np.zeros((out_size, in_size), dtype=np.float32)
+        matrix[:, 0] = 1.0
+        return matrix
+    positions = np.arange(out_size, dtype=np.float64) * (in_size - 1) / (out_size - 1)
+    low = np.floor(positions).astype(np.int64)
+    high = np.minimum(low + 1, in_size - 1)
+    frac = positions - low
+    matrix = np.zeros((out_size, in_size), dtype=np.float64)
+    np.add.at(matrix, (np.arange(out_size), low), 1.0 - frac)
+    np.add.at(matrix, (np.arange(out_size), high), frac)
+    return matrix.astype(np.float32)
+
+
+def _half_pixel_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Bilinear (out_size, in_size) weights with half-pixel centers and edge
+    clamping (F.interpolate(..., align_corners=False))."""
+    positions = (np.arange(out_size, dtype=np.float64) + 0.5) * in_size / out_size - 0.5
+    positions = np.maximum(positions, 0.0)
+    low = np.minimum(np.floor(positions).astype(np.int64), in_size - 1)
+    high = np.minimum(low + 1, in_size - 1)
+    frac = positions - low
+    matrix = np.zeros((out_size, in_size), dtype=np.float64)
+    np.add.at(matrix, (np.arange(out_size), low), 1.0 - frac)
+    np.add.at(matrix, (np.arange(out_size), high), frac)
+    return matrix.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _bilinear_matrices(
+    in_shape: Tuple[int, int], out_shape: Tuple[int, int], align_corners: bool,
+    device: torch.device,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (Wh, Ww) fp32 matrices of `interpolate_bilinear`, copied to
+    `device` once per key, so a repeated call makes no host copy."""
+    make = _align_corners_matrix if align_corners else _half_pixel_matrix
+    return (
+        torch.as_tensor(make(in_shape[0], out_shape[0]), device=device),
+        torch.as_tensor(make(in_shape[1], out_shape[1]), device=device),
+    )
+
+
+def interpolate_bilinear(images: torch.Tensor, out_shape, align_corners: bool = True):
+    """Plain (not antialiased) bilinear resize of the trailing two dims,
+    F.interpolate(mode="bilinear") for either `align_corners`, as two fp32
+    matmuls (the JAX code's matrix form); returns `images`' dtype."""
+    out_shape = tuple(int(s) for s in out_shape[-2:])
+    wh, ww = _bilinear_matrices(
+        tuple(images.shape[-2:]), out_shape, bool(align_corners), images.device
+    )
+    out = torch.matmul(wh, images.float())
+    return torch.matmul(out, ww.T).to(images.dtype)

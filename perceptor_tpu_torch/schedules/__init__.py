@@ -8,6 +8,7 @@ from perceptor_tpu_torch.schedules.cosine import (
     sigma_to_t,
     t_to_alpha_sigma,
 )
+from perceptor_tpu_torch.schedules.edm import EDM, edm_preconditioning, edm_schedule_ts, edm_sigmas
 from perceptor_tpu_torch.schedules.ddpm import linear_alphas_sigmas, scaled_linear_alphas_sigmas
 from perceptor_tpu_torch.schedules.karras import (
     indexed_schedule,
@@ -16,8 +17,12 @@ from perceptor_tpu_torch.schedules.karras import (
 )
 
 __all__ = [
+    "EDM",
     "alpha_sigma_to_log_snr",
     "alpha_sigma_to_t",
+    "edm_preconditioning",
+    "edm_schedule_ts",
+    "edm_sigmas",
     "get_ddpm_schedule",
     "get_log_schedule",
     "get_spliced_ddpm_cosine_schedule",

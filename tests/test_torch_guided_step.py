@@ -166,13 +166,16 @@ def test_port_imports_no_jax():
         "             'models.velocity_diffusion.velocity_diffusion', 'models.stable_diffusion.convert',\n"
         "             'models.latent_diffusion.bert', 'models.latent_diffusion.first_stage',\n"
         "             'models.latent_diffusion.ddim', 'models.latent_diffusion.text2image',\n"
-        "             'models.latent_diffusion.face', 'models.latent_diffusion.super_resolution'):\n"
+        "             'models.latent_diffusion.face', 'models.latent_diffusion.super_resolution',\n"
+        "             'ops.upfirdn', 'schedules.edm', 'predictions.edm', 'models.clip.resnet',\n"
+        "             'models.monster_diffusion.net', 'models.monster_diffusion.monster_diffusion'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
         "drawers.Raw, drawers.JPEG, engine.optimize, engine.run_on_device, transforms.random_cutouts\n"
         "models.GuidedDiffusion, models.VelocityDiffusion, losses.VelocityDiffusion\n"
-        "drawers.BruteDiffusion\n"
+        "drawers.BruteDiffusion, models.MonsterDiffusion\n"
+        "from perceptor_tpu_torch.models.stable_diffusion import Conditioning\n"
         "ld = models.latent_diffusion\n"
         "ld.Text2Image, ld.Face, ld.SuperResolution, ld.VQModel, ld.VectorQuantizer\n"
         "ld.BERTEncoder, ld.BERTTokenizer, ld.convert_compvis_autoencoder\n"
