@@ -127,7 +127,24 @@ exits non-zero without a result line:
                   bf16 against fp32 (5e-2), then 20 optimization steps of a
                   224px `Raw` under `losses.CLIP("RN50")`: the loss falls,
                   no flash launch;
-24. timings       each kernel, its plain version and PyTorch's
+24. perceptual_losses  each loss of the perceptual slice at full width on a
+                  512px image, batch 1: `LPIPS` squeeze / alex / vgg (to a
+                  fixed init image), `StyleTransfer` (VGG19, a striped style
+                  image), `Memorability("resmem")` (ResNet-152 + AlexNet at
+                  227), `SimulacraAesthetic` ViT-L-14 and ViT-B-32,
+                  `AestheticVisualAssessment` (ViT-B-16) in its three modes
+                  and `TransformersOpenAICLIP` ViT-L/14 with the prompt: the
+                  value, forward + backward ms, peak memory, no flash launch,
+                  a finite nonzero gradient; LPIPS(a, a) < 1e-6,
+                  StyleTransfer(a, a) < 1e-5; the four bf16 CLIP towers
+                  within 5e-2 of fp32 copies;
+25. perceptual_optimize  20 Adam steps of a 512px `Raw` from the init image
+                  under five of them (Memorability weighted -1): the loss
+                  falls, no flash launch, ms a step, a profiled step;
+26. aesthetic_guided_sample  2 CFG-guided SD steps at 512px under
+                  Simulacra ViT-L-14 and LPIPS-vgg to the init image: 21 /
+                  21 / 21 launches a step, finite latents and losses;
+27. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
                   backward where it takes the head_dim (d <= 256), beside
@@ -223,6 +240,13 @@ PER_STEP = {
     # evaluation; the CLIP ResNets: the pool's one query over 50 / 82 keys
     "monster_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "clip_resnet": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # the perceptual, style, memorability and aesthetic losses, per loss
+    # evaluation (forward and backward) and per optimization step: CNNs and
+    # CLIP ViTs of at most 257 tokens (ViT-L/14 at 224px) take no kernel;
+    # guided SD sampling under two of them launches `guided_sample`'s
+    "perceptual_losses": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "perceptual_optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "aesthetic_guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -291,6 +315,30 @@ MONSTER_RUNS = (("sample", 20), ("dpm_solver_sample", 10), ("linear_multistep_sa
 # of a `Raw` drawer at RN50's 224px under `losses.CLIP("RN50")`
 CLIP_RESNETS = ("RN50", "RN50x4")
 RN_OPTIMIZE_STEPS = 20
+# the perceptual, style, memorability and aesthetic losses at full width on
+# 512px images; 20 optimization steps of a 512px `Raw` drawer under five of
+# them, and 2 CFG-guided SD steps under Simulacra (ViT-L/14) and LPIPS-vgg
+LPIPS_NAMES = ("squeeze", "alex", "vgg")
+RESMEM_NAME = "resmem"
+SIMULACRA_NAMES = ("ViT-L-14", "ViT-B-32")
+HF_CLIP_NAME = "openai/clip-vit-large-patch14"
+PERCEPTUAL_LOSSES = (
+    *(f"lpips_{name}" for name in LPIPS_NAMES), "style_transfer", "memorability",
+    *(f"simulacra_{name}" for name in SIMULACRA_NAMES),
+    "ava_logit", "ava_expected", "ava_probability", "transformers_openai_clip",
+)
+# (loss, weight): memorability is raised, so it takes a negative weight
+OPTIMIZE_OBJECTIVES = (
+    ("transformers_openai_clip", 1.0), ("simulacra_ViT-L-14", 1.0), ("lpips_vgg", 1.0),
+    ("style_transfer", 1.0), ("memorability", -1.0),
+)
+GUIDED_OBJECTIVES = ["simulacra_ViT-L-14", "lpips_vgg"]
+PERCEPTUAL_STEPS = 20
+AESTHETIC_GUIDED_STEPS = 2
+# a loss between an image and itself: LPIPS's normalized features cancel
+# exactly, StyleTransfer's fp32 Gram matrices to rounding
+LPIPS_SELF_ATOL = 1e-6
+STYLE_SELF_ATOL = 1e-5
 # bert-base-uncased has 30,522 entries; no vocabulary file is in the tree, so
 # a synthetic one of that size: a few real word pieces, then [unusedN]
 BERT_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "cat", "photo", "of", "##s", "the"]
@@ -1021,7 +1069,8 @@ def phase_text_tower(fa):
     return clip
 
 
-def run_optimize(fa, name, drawer, objectives, steps, extra=None, evaluate=None) -> dict:
+def run_optimize(fa, name, drawer, objectives, steps, extra=None, evaluate=None,
+                 loss_weights=None) -> dict:
     """`engine.optimize` for `steps` Adam steps, a CUDA event after each:
     the loss must fall (the history's last entry below its first, or, where
     every step draws new cutouts, `evaluate()` after the steps below
@@ -1041,7 +1090,7 @@ def run_optimize(fa, name, drawer, objectives, steps, extra=None, evaluate=None)
     t0 = time.perf_counter()
     events[0].record()
     _, history = engine.optimize(
-        drawer, objectives, n_steps=steps,
+        drawer, objectives, n_steps=steps, loss_weights=loss_weights,
         callback=lambda i, params, aux: events[i + 1].record(),
     )
     torch.cuda.synchronize()
@@ -1065,15 +1114,22 @@ def run_optimize(fa, name, drawer, objectives, steps, extra=None, evaluate=None)
     return record
 
 
-def step_profile(drawer, objectives) -> dict:
+def profile_summary(fn) -> dict:
+    """`profile_record(fn)` without its list of kernels: device ms,
+    launches and the busy share."""
+    record = profile_record(fn)
+    return {k: record[k] for k in (
+        "device_ms", "kernel_launches", "unprofiled_ms", "device_busy_share_unprofiled",
+        "step_wall_ms", "device_busy_share")}
+
+
+def step_profile(drawer, objectives, loss_weights=None) -> dict:
     """One more optimization step under torch.profiler (and three unprofiled
     before it): device ms, launches and the busy share."""
     from perceptor_tpu_torch import engine
 
-    record = profile_record(engine.make_guidance_step(drawer, objectives))
-    return {k: record[k] for k in (
-        "device_ms", "kernel_launches", "unprofiled_ms", "device_busy_share_unprofiled",
-        "step_wall_ms", "device_busy_share")}
+    return profile_summary(engine.make_guidance_step(drawer, objectives,
+                                                     loss_weights=loss_weights))
 
 
 def phase_optimize_raw(fa) -> None:
@@ -1953,6 +2009,27 @@ def phase_monster_sample(fa):
     return launches, measured
 
 
+def check_bf16_tower(clip, label, seed):
+    """`clip`'s bf16 image tower on two random images at its native size
+    against an fp32 copy of the same weights: (images, encodings, relative
+    L2 error); raises if the embeddings are not finite or the error is
+    above TEXT_BF16_RTOL."""
+    import copy
+
+    import torch
+
+    images = torch.rand((2, 3, *clip.config.image_size),
+                        generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+    normalized = (images - clip._mean) / clip._std
+    with torch.no_grad():
+        encodings = clip.module.encode_image(normalized)
+        reference = copy.deepcopy(clip.module.visual).float()(normalized)
+    err = _rel_l2(encodings, reference)
+    if not (torch.isfinite(encodings).all() and err <= TEXT_BF16_RTOL):
+        raise AssertionError(f"{label}: bf16 vs fp32 relative L2 {err}")
+    return images, encodings, err
+
+
 def phase_clip_resnet(fa):
     """CLIP's ResNet towers (`models.CLIP` of CLIP_RESNETS, bf16) on two
     images at their native sizes against an fp32 copy (relative L2 within
@@ -1960,8 +2037,6 @@ def phase_clip_resnet(fa):
     of `engine.optimize` on a 224px `Raw` drawer under `losses.CLIP("RN50")`
     with the prompt: the loss falls, no flash launch. Returns (launches,
     launches per optimization step)."""
-    import copy
-
     import torch
 
     from perceptor_tpu_torch import drawers, losses, models
@@ -1971,15 +2046,7 @@ def phase_clip_resnet(fa):
     for name in CLIP_RESNETS:
         clip = models.CLIP(name)
         size = clip.config.image_size
-        images = torch.rand((2, 3, *size), generator=torch.Generator("cuda").manual_seed(15),
-                            device="cuda")
-        normalized = (images - clip._mean) / clip._std
-        with torch.no_grad():
-            encodings = clip.module.encode_image(normalized)
-            reference = copy.deepcopy(clip.module.visual).float()(normalized)
-        err = _rel_l2(encodings, reference)
-        if not (torch.isfinite(encodings).all() and err <= TEXT_BF16_RTOL):
-            raise AssertionError(f"clip_resnet {name}: bf16 vs fp32 relative L2 {err}")
+        images, encodings, err = check_bf16_tower(clip, f"clip_resnet {name}", seed=15)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         times = []
         for _ in range(5):
@@ -1994,7 +2061,7 @@ def phase_clip_resnet(fa):
             "bf16_vs_fp32_rel_l2": err, "tol": TEXT_BF16_RTOL,
             "encode_images_ms": sorted(times)[2],
         }
-        del clip, reference
+        del clip
         torch.cuda.empty_cache()
     embedding_launches = dict(fa.LAUNCHES)
     if any(embedding_launches.values()):
@@ -2008,6 +2075,192 @@ def phase_clip_resnet(fa):
     check_per_step("clip_resnet", measured)
     emit({"phase": "clip_resnet", "ok": True, "towers": towers, "prompt": PROMPT,
           "optimize_rn50": record, "profile": step_profile(drawer, [loss])})
+    return launches, measured
+
+
+def perceptual_images():
+    """The fixed 512px init image (inpainting's ramps and wave), a second
+    image (uniform noise from a seeded generator) and a style image
+    (diagonal stripes, a phase apart in each channel)."""
+    import torch
+
+    init, _ = inpaint_inputs()
+    other = torch.rand(init.shape, generator=torch.Generator("cuda").manual_seed(21),
+                       device="cuda")
+    ramp = torch.linspace(0.0, 1.0, IMAGE_SIZE, device="cuda")
+    y, x = torch.meshgrid(ramp, ramp, indexing="ij")
+    style = torch.stack([0.5 + 0.5 * torch.sin(2 * math.pi * 12 * (x - y) + phase)
+                         for phase in (0.0, 2.1, 4.2)])[None]
+    return init, other, style
+
+
+def perceptual_objective(name, init, style):
+    """One of PERCEPTUAL_LOSSES at full width: (images -> scalar, the module
+    whose parameters it runs); LPIPS is taken to `init`, StyleTransfer to
+    `style`. The models are memoized: a loss built twice shares them."""
+    from perceptor_tpu_torch import losses
+
+    kind, _, arg = name.partition("_")
+    if kind == "lpips":
+        lpips = losses.LPIPS(arg)
+        return (lambda images: lpips(images, init).mean()), lpips.model.module
+    if kind == "style":
+        loss = losses.StyleTransfer(style)
+        return loss, loss.model.module
+    if kind == "memorability":
+        loss = losses.Memorability(RESMEM_NAME)
+        return loss, loss.model.module
+    if kind == "simulacra":
+        loss = losses.SimulacraAesthetic(arg)
+        return loss, loss.model.clip_model.module.visual
+    if kind == "ava":
+        loss = losses.AestheticVisualAssessment(mode=arg)
+        return loss, loss.model.module.visual
+    loss = losses.TransformersOpenAICLIP(HF_CLIP_NAME).add_texts_([PROMPT])
+    return loss, loss.model.module.visual
+
+
+def phase_perceptual_losses(fa):
+    """Each loss of this slice at full width on a 512px image, batch 1: its
+    value, forward + backward ms (`time_ms`: device-paced unless the host
+    waits inside the call, as it does on the resize's pageable copy of its
+    matrices), the same call profiled (device ms, launches), peak memory,
+    flash launches (none: ViT-L/14's 257 tokens and the CNNs take no
+    kernel) and a finite, nonzero image gradient; LPIPS(a, a) and
+    StyleTransfer(a, a) near 0; each bf16 CLIP tower within TEXT_BF16_RTOL
+    of an fp32 copy (relative L2 of the image embeddings). Returns
+    (launches, launches per loss evaluation)."""
+    import torch
+
+    from perceptor_tpu_torch import losses, models
+
+    init, other, style = perceptual_images()
+    objectives = {name: perceptual_objective(name, init, style) for name in PERCEPTUAL_LOSSES}
+    records, launches = {}, {name: 0 for name in REPLACES}
+    for name, (loss, module) in objectives.items():
+        x = other.clone().requires_grad_(True)
+
+        def forward_backward(loss=loss, x=x):
+            value = loss(x).float().reshape(())
+            (grad,) = torch.autograd.grad(value, x)
+            return value, grad
+
+        forward_backward()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        value, grad = forward_backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launched = dict(fa.LAUNCHES)
+        check_per_step("perceptual_losses", per_step(launched, 1))
+        grad_max = float(grad.abs().max())
+        if not (torch.isfinite(value) and torch.isfinite(grad).all() and grad_max > 0):
+            raise AssertionError(f"perceptual_losses {name}: value {value}, |grad| max {grad_max}")
+        records[name] = {
+            "value": float(value.detach()), "fwd_bwd_ms": time_ms(forward_backward, reps=10),
+            "profile": profile_summary(forward_backward), "peak_mem_bytes": peak,
+            "allocated_before_bytes": allocated,
+            "parameters": sum(p.numel() for p in module.parameters()),
+            "grad_abs_max": grad_max, "flash_launches": launched,
+        }
+        for kernel in launches:
+            launches[kernel] += launched[kernel]
+    # each loss between an image and itself
+    with torch.no_grad():
+        self_distance = {f"lpips_{name}": float(losses.LPIPS(name)(init, init).abs().max())
+                         for name in LPIPS_NAMES}
+        self_distance["style_transfer"] = float(objectives["style_transfer"][0](init, init))
+    for name, distance in self_distance.items():
+        atol = STYLE_SELF_ATOL if name == "style_transfer" else LPIPS_SELF_ATOL
+        if not distance < atol:
+            raise AssertionError(f"perceptual_losses: {name}(a, a) = {distance} >= {atol}")
+    # the bf16 CLIP towers against fp32 copies of the same weights
+    towers = {}
+    clips = [models.CLIP(name) for name in (*SIMULACRA_NAMES, "ViT-B-16")]
+    clips.append(models.TransformersOpenAICLIP(HF_CLIP_NAME))
+    for clip in clips:
+        label = getattr(clip, "name", clip.architecture)
+        _, _, err = check_bf16_tower(clip, f"perceptual_losses {label}", seed=22)
+        towers[label] = {"image_size": list(clip.config.image_size), "bf16_vs_fp32_rel_l2": err,
+                         "tol": TEXT_BF16_RTOL}
+    emit({"phase": "perceptual_losses", "ok": True, "image_size": IMAGE_SIZE, "prompt": PROMPT,
+          "losses": records, "self_distance": self_distance, "towers": towers})
+    return launches, per_step(launches, len(records))
+
+
+def phase_perceptual_optimize(fa):
+    """`engine.optimize`, PERCEPTUAL_STEPS Adam steps of a 512px `Raw`
+    drawer from the init image under the HF-layout CLIP ViT-L/14 with the
+    prompt, `SimulacraAesthetic("ViT-L-14")`, `LPIPS("vgg")` to the init
+    image, `StyleTransfer` to the style image and `Memorability` weighted
+    -1: the total falls, no flash launch; ms a step, one profiled step,
+    peak memory. Returns (launches, launches per step)."""
+    from perceptor_tpu_torch import drawers
+
+    init, _, style = perceptual_images()
+    names, weights = zip(*OPTIMIZE_OBJECTIVES)
+    chosen = [perceptual_objective(name, init, style)[0] for name in names]
+    drawer = drawers.Raw(init)
+    record = run_optimize(fa, "perceptual_optimize", drawer, chosen, PERCEPTUAL_STEPS,
+                          loss_weights=weights)
+    launches = record["flash_launches"]
+    measured = per_step(launches, PERCEPTUAL_STEPS)
+    check_per_step("perceptual_optimize", measured)
+    emit({"phase": "perceptual_optimize", "ok": True, "image_size": IMAGE_SIZE,
+          "objectives": dict(OPTIMIZE_OBJECTIVES), "prompt": PROMPT, **record,
+          "profile": step_profile(drawer, chosen, loss_weights=weights)})
+    return launches, measured
+
+
+def phase_aesthetic_guided_sample(fa):
+    """`engine.guided_sample` on SD at 512px with CFG 7 and guidance scale
+    0.5 under `SimulacraAesthetic("ViT-L-14")` and `LPIPS("vgg")` to the
+    init image, AESTHETIC_GUIDED_STEPS steps: 21 launches of each kernel a
+    step, finite latents and losses, ms per step, peak memory. Returns
+    (launches, launches per step)."""
+    import torch
+
+    from perceptor_tpu_torch.engine import guided_sample
+    from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
+
+    init, _, style = perceptual_images()
+    objectives = [perceptual_objective(name, init, style)[0] for name in GUIDED_OBJECTIVES]
+    sd = StableDiffusion(MODEL, device="cuda", seed=0)
+    uncond, cond = sd.conditioning([""]), sd.conditioning([PROMPT])
+    latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE),
+                                         torch.Generator("cuda").manual_seed(23))
+    pairs = sd.schedule_indices(AESTHETIC_GUIDED_STEPS)
+    options = dict(conditioning=cond, uncond_conditioning=uncond, cfg_scale=CFG_SCALE,
+                   guidance_scale=0.5)
+    guided_sample(sd, objectives, latents, pairs[:1], **options)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out, history = guided_sample(sd, objectives, latents, pairs, **options)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    k = len(pairs)
+    measured = per_step(launches, k)
+    check_per_step("aesthetic_guided_sample", measured)
+    if not (torch.isfinite(out).all() and torch.isfinite(history).all()):
+        raise AssertionError("aesthetic_guided_sample: non-finite latents or losses")
+    emit({
+        "phase": "aesthetic_guided_sample", "ok": True, "model": MODEL, "steps": k,
+        "pairs": pairs.tolist(), "objectives": GUIDED_OBJECTIVES,
+        "guidance_scale": 0.5, "cfg_scale": CFG_SCALE, "losses": history.tolist(),
+        "latents_shape": list(out.shape), "ms_per_step": start.elapsed_time(end) / k,
+        "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": measured,
+    })
     return launches, measured
 
 
@@ -2139,6 +2392,7 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
                 # the 9-channel UNet has SD-1.x's sites
                 "inpaint_sample": sum(r["ms"] * r["per_step"] for r in sampling),
                 "inpaint_guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
+                "aesthetic_guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 # per UNet evaluation (forward only) and per guided step
                 "adm_sample": adm if name == "flash_fwd" else 0.0,
                 "adm_guided_sample": adm,
@@ -2237,10 +2491,11 @@ def main() -> int:
     measured.update(velocity_measured)
     del clip
     torch.cuda.empty_cache()
-    # the latent-diffusion family, one model at a time
-    # then MonsterDiffusion and CLIP's ResNet towers
+    # the latent-diffusion family, one model at a time, then
+    # MonsterDiffusion, CLIP's ResNet towers and the perceptual losses
     for phase in (phase_ldm_text2image, phase_ldm_face, phase_ldm_super_resolution,
-                  phase_monster_sample, phase_clip_resnet):
+                  phase_monster_sample, phase_clip_resnet, phase_perceptual_losses,
+                  phase_perceptual_optimize, phase_aesthetic_guided_sample):
         path = phase.__name__.removeprefix("phase_")
         launches[path], measured[path] = phase(fa)
         torch.cuda.empty_cache()

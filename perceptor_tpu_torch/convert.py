@@ -7,7 +7,8 @@ perceptor_tpu/models/clip/convert.py,
 perceptor_tpu/models/guided_diffusion/convert.py,
 perceptor_tpu/models/velocity_diffusion/convert.py,
 perceptor_tpu/models/monster_diffusion/convert.py,
-perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py):
+perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py,
+perceptor_tpu/models/vgg.py, lpips.py, resnet.py and resmem.py):
 
     conv   (kh, kw, I, O) -> (O, I, kh, kw)
     dense  (I, O)         -> (O, I)      (ADM's 1x1 conv1d: (O, I, 1))
@@ -16,9 +17,15 @@ perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py):
 The port's keys are diffusers' (UNet, VAE, the VQ stage's backbone),
 open_clip's (CLIP, both image towers), OpenAI guided_diffusion's (ADM;
 CompVis's for its spatial transformers), k-diffusion's (MonsterDiffusion)
-and x-transformer's (BERT), so the JAX package's own `unet_from_diffusers`,
-`vae_from_diffusers`, `from_openclip`, the three `from_torch` and
-`convert_bert` map these state_dicts back to the same trees.
+x-transformer's (BERT), torchvision's (the VGG, AlexNet, SqueezeNet and
+ResNet trunks), lpips' (its heads) and ResMem's, so the JAX package's own
+`unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the three
+`from_torch`, `convert_bert`, `convert_torchvision_features`,
+`convert_resnet` and `convert_resmem` map these state_dicts back to the
+same trees.
+
+One map is torch to torch: `open_clip_state_dict_from_hf` takes an HF
+`transformers` CLIPModel state_dict to the port's open_clip names.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from perceptor_tpu_torch.models.latent_diffusion.bert import BERTConfig
 from perceptor_tpu_torch.models.monster_diffusion.net import MonsterConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
+from perceptor_tpu_torch.models.vgg import VGG16_CFG, VGG19_CFG
+from perceptor_tpu_torch.models.vgg import _layers as vgg_layers
 from perceptor_tpu_torch.ops.upfirdn import fir_taps
 
 StateDict = Dict[str, torch.Tensor]
@@ -473,4 +482,136 @@ def monster_state_dict_from_jax(params: Mapping, cfg: MonsterConfig) -> StateDic
         end = blocks("u", i, prefix, 0)
         if i > 0:
             sd[f"{prefix}.{end}.kernel"] = fir_taps("linear", gain=2.0)
+    return sd
+
+
+def _vgg_convs(params: Mapping, cfg, sd: StateDict, prefix: str = "features") -> None:
+    """Flax `conv_{k}` of a VGG trunk -> torchvision `features.{i}`, i the
+    k-th conv's index in `cfg`'s layer list."""
+    indices = [i for i, (kind, _) in enumerate(vgg_layers(cfg)) if kind == "conv"]
+    for k, index in enumerate(indices):
+        if f"conv_{k}" in params:
+            _conv(params[f"conv_{k}"], f"{prefix}.{index}", sd)
+
+
+def vgg_state_dict_from_jax(params: Mapping, cfg=VGG19_CFG) -> StateDict:
+    """Flax `VGGFeatures` params -> the port's `VGGFeatures` state_dict
+    (torchvision's `features.{i}`); the inverse of the JAX package's
+    `models/vgg.py convert_torchvision_features`."""
+    sd: StateDict = {}
+    _vgg_convs(params, cfg, sd)
+    return sd
+
+
+def lpips_state_dict_from_jax(params: Mapping, name: str) -> StateDict:
+    """The JAX `LPIPS.params` ({"backbone", "lins"}) of backbone `name` ->
+    the port's `LPIPSNet` state_dict: the trunk under torchvision's
+    `features.*`, the (C, 1) heads as lpips' `lin{k}.model.1.weight`
+    (1, C, 1, 1)."""
+    backbone, sd = params["backbone"], {}
+    if name == "vgg":
+        _vgg_convs(backbone, VGG16_CFG, sd)
+    elif name == "alex":
+        for k, index in enumerate((0, 3, 6, 8, 10)):
+            _conv(backbone[f"conv_{k}"], f"features.{index}", sd)
+    else:  # squeezenet1_1
+        _conv(backbone["conv_0"], "features.0", sd)
+        for index in (3, 4, 6, 7, 9, 10, 11, 12):
+            for part in ("squeeze", "expand1x1", "expand3x3"):
+                _conv(backbone[f"fire_{index}"][part], f"features.{index}.{part}", sd)
+    for k, lin in enumerate(params["lins"]):
+        sd[f"lin{k}.model.1.weight"] = _t(np.asarray(lin).T[:, :, None, None])
+    return sd
+
+
+def resnet_state_dict_from_jax(params: Mapping, prefix: str = "") -> StateDict:
+    """Flax `ResNetFeatures` params -> torchvision ResNet names under
+    `prefix`; the inverse of the JAX package's `models/resnet.py
+    convert_resnet`."""
+    sd: StateDict = {}
+    _conv(params["conv1"], f"{prefix}conv1", sd)
+    _batch_norm(params["bn1"], f"{prefix}bn1", sd)
+    for key, block in params.items():
+        if not key.startswith("layer"):
+            continue
+        stage, i = key.split("_")
+        dst = f"{prefix}{stage}.{i}"
+        for j in (1, 2, 3):
+            _conv(block[f"conv{j}"], f"{dst}.conv{j}", sd)
+            _batch_norm(block[f"bn{j}"], f"{dst}.bn{j}", sd)
+        if "downsample_conv" in block:
+            _conv(block["downsample_conv"], f"{dst}.downsample.0", sd)
+            _batch_norm(block["downsample_bn"], f"{dst}.downsample.1", sd)
+    return sd
+
+
+def resmem_state_dict_from_jax(params: Mapping) -> StateDict:
+    """Flax `ResMemNet` params -> the port's upstream-named `ResMemNet`
+    state_dict; the inverse of the JAX package's `models/resmem.py
+    convert_resmem`. JAX flattens the pooled AlexNet map in (H, W, C)
+    order, torch in (C, H, W): the fc6 kernel (s * s * C, out) becomes the
+    weight (out, C * s * s), C the last conv's width."""
+    alexnet = params["alexnet"]
+    sd: StateDict = {}
+    for k, index in enumerate((0, 3, 6, 8, 10)):
+        _conv(alexnet[f"conv{k + 1}"], f"features.{index}", sd)
+    kernel = np.asarray(alexnet["fc6"]["kernel"])
+    channels = np.asarray(alexnet["conv5"]["kernel"]).shape[-1]
+    side = int(round((kernel.shape[0] // channels) ** 0.5))
+    sd["fc6.weight"] = _t(
+        kernel.reshape(side, side, channels, -1).transpose(3, 2, 0, 1).reshape(kernel.shape[1], -1))
+    sd["fc6.bias"] = _t(alexnet["fc6"]["bias"])
+    _linear(alexnet["fc7"], "fc7", sd)
+    sd.update(resnet_state_dict_from_jax(params["resnet"], prefix="resnet."))
+    for name in ("head1", "head2", "head3"):
+        _linear(params[name], name, sd)
+    return sd
+
+
+def _hf_blocks(hf: Mapping, src: str, dst: str, layers: int, sd: StateDict) -> None:
+    """HF `encoder.layers.{i}` -> open_clip `resblocks.{i}`: q / k / v
+    packed into `attn.in_proj_*`, `fc1` / `fc2` as `c_fc` / `c_proj`."""
+    renames = (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"),
+               ("self_attn.out_proj", "attn.out_proj"), ("mlp.fc1", "mlp.c_fc"),
+               ("mlp.fc2", "mlp.c_proj"))
+    for i in range(layers):
+        s, d = f"{src}.{i}", f"{dst}.{i}"
+        for param in ("weight", "bias"):
+            for a, b in renames:
+                sd[f"{d}.{b}.{param}"] = torch.as_tensor(hf[f"{s}.{a}.{param}"])
+            sd[f"{d}.attn.in_proj_{param}"] = torch.cat(
+                [torch.as_tensor(hf[f"{s}.self_attn.{n}_proj.{param}"]) for n in "qkv"])
+
+
+def open_clip_state_dict_from_hf(hf_state_dict: Mapping, cfg: CLIPConfig) -> StateDict:
+    """An HF `transformers` CLIPModel state_dict -> the port's open_clip
+    names (the torch counterpart of the JAX package's
+    `models/clip/convert.py from_hf`): split q / k / v packed, `fc1` /
+    `fc2` renamed, HF's `pre_layrnorm` spelling read, the (embed, width)
+    `visual_projection` / `text_projection` transposed, `position_ids`
+    dropped. ViT towers only: HF has no ModifiedResNet."""
+    if cfg.is_resnet:
+        raise ValueError("HF CLIPModel checkpoints hold ViT towers only")
+    hf = hf_state_dict
+
+    def get(key):
+        return torch.as_tensor(hf[key])
+
+    sd: StateDict = {
+        "visual.conv1.weight": get("vision_model.embeddings.patch_embedding.weight"),
+        "visual.class_embedding": get("vision_model.embeddings.class_embedding"),
+        "visual.positional_embedding": get("vision_model.embeddings.position_embedding.weight"),
+        "visual.proj": get("visual_projection.weight").t().contiguous(),
+        "token_embedding.weight": get("text_model.embeddings.token_embedding.weight"),
+        "positional_embedding": get("text_model.embeddings.position_embedding.weight"),
+        "text_projection": get("text_projection.weight").t().contiguous(),
+        "logit_scale": get("logit_scale"),
+    }
+    for dst, src in (("visual.ln_pre", "vision_model.pre_layrnorm"),
+                     ("visual.ln_post", "vision_model.post_layernorm"),
+                     ("ln_final", "text_model.final_layer_norm")):
+        sd[f"{dst}.weight"], sd[f"{dst}.bias"] = get(f"{src}.weight"), get(f"{src}.bias")
+    _hf_blocks(hf, "vision_model.encoder.layers", "visual.transformer.resblocks",
+               cfg.vision_layers, sd)
+    _hf_blocks(hf, "text_model.encoder.layers", "transformer.resblocks", cfg.text_layers, sd)
     return sd

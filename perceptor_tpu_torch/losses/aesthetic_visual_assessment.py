@@ -1,0 +1,43 @@
+"""AVA aesthetic loss: CLIP ViT-B-16 and a 10-way linear head
+(counterpart of perceptor_tpu/losses/aesthetic_visual_assessment.py), in
+three modes: `logit` (the target class's logit), `expected` (the squared
+distance of the softmax-weighted classes 1..10 to the target) and
+`probability` (the target class's probability). No head is in the tree:
+the untrained head is drawn as the JAX package draws it
+(`np.random.default_rng(0)`, N(0, D^-1/2), bias 0).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from perceptor_tpu_torch import models
+from perceptor_tpu_torch.losses.interface import LossInterface
+
+
+class AestheticVisualAssessment(LossInterface):
+    def __init__(self, aesthetic_target: int = 10, mode: str = "expected", **kwargs):
+        """`kwargs` go to `models.CLIP` (`precision`, `config`, `device`,
+        `seed`)."""
+        if mode not in ("logit", "expected", "probability"):
+            raise ValueError(f"Unknown mode: {mode}")
+        self.aesthetic_target = aesthetic_target
+        self.mode = mode
+        self.model = models.CLIP("ViT-B-16", **kwargs)
+        dim = self.model.config.embed_dim
+        rng = np.random.default_rng(0)
+        head = rng.normal(0, dim**-0.5, (dim, 10)).astype(np.float32)
+        self.weight = torch.as_tensor(head, device=self.model.device)
+        self.bias = torch.zeros((10,), device=self.model.device)
+        self._classes = torch.arange(1, 11, dtype=torch.float32, device=self.model.device)
+
+    def forward(self, images) -> torch.Tensor:
+        encodings = self.model.encode_images(images, normalize=False).float()
+        log_probs = encodings @ self.weight + self.bias
+        if self.mode == "logit":
+            return -log_probs[..., self.aesthetic_target - 1].mean() * 0.01
+        if self.mode == "expected":
+            expected = torch.softmax(log_probs, dim=-1) * self._classes
+            return torch.square(expected - self.aesthetic_target).mean() * 0.01
+        return -torch.softmax(log_probs, dim=-1)[..., self.aesthetic_target - 1].mean()

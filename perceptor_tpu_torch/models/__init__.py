@@ -12,15 +12,19 @@ _EXPORTS = {
     "GuidedDiffusion": ("perceptor_tpu_torch.models.guided_diffusion", "GuidedDiffusion"),
     "VelocityDiffusion": ("perceptor_tpu_torch.models.velocity_diffusion", "VelocityDiffusion"),
     "MonsterDiffusion": ("perceptor_tpu_torch.models.monster_diffusion", "MonsterDiffusion"),
+    "VGG19": ("perceptor_tpu_torch.models.vgg", "VGG19"),
+    "ResMem": ("perceptor_tpu_torch.models.resmem", "ResMem"),
+    "SimulacraAesthetic": ("perceptor_tpu_torch.models.simulacra_aesthetic", "SimulacraAesthetic"),
+    "TransformersOpenAICLIP": (
+        "perceptor_tpu_torch.models.transformers_openai_clip", "TransformersOpenAICLIP"),
     # the subpackage itself (Text2Image, Face, SuperResolution, ...)
     "latent_diffusion": ("perceptor_tpu_torch.models.latent_diffusion", None),
 }
 
 _NOT_PORTED = (
-    "DeepImagePrior", "VGG19",
-    "SuperResolution", "MidasDepth", "AdaBinsDepth", "SimulacraAesthetic",
-    "AestheticVisualAssessment", "BLIP", "CLOOB", "SLIP", "LiT", "ResMem", "RuCLIP",
-    "GlideCLIP", "OWLViT", "StyleGANXL", "TransformersOpenAICLIP",
+    "DeepImagePrior", "SuperResolution", "MidasDepth", "AdaBinsDepth",
+    "AestheticVisualAssessment", "BLIP", "CLOOB", "SLIP", "LiT", "RuCLIP",
+    "GlideCLIP", "OWLViT", "StyleGANXL",
 )
 
 __all__ = list(_EXPORTS)

@@ -168,13 +168,21 @@ def test_port_imports_no_jax():
         "             'models.latent_diffusion.ddim', 'models.latent_diffusion.text2image',\n"
         "             'models.latent_diffusion.face', 'models.latent_diffusion.super_resolution',\n"
         "             'ops.upfirdn', 'schedules.edm', 'predictions.edm', 'models.clip.resnet',\n"
-        "             'models.monster_diffusion.net', 'models.monster_diffusion.monster_diffusion'):\n"
+        "             'models.monster_diffusion.net', 'models.monster_diffusion.monster_diffusion',\n"
+        "             'models.vgg', 'models.lpips', 'models.resnet', 'models.resmem',\n"
+        "             'models.transformers_openai_clip', 'models.simulacra_aesthetic',\n"
+        "             'losses.lpips', 'losses.style_transfer', 'losses.memorability',\n"
+        "             'losses.transformers_openai_clip', 'losses.simulacra_aesthetic',\n"
+        "             'losses.aesthetic_visual_assessment'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
         "drawers.Raw, drawers.JPEG, engine.optimize, engine.run_on_device, transforms.random_cutouts\n"
         "models.GuidedDiffusion, models.VelocityDiffusion, losses.VelocityDiffusion\n"
         "drawers.BruteDiffusion, models.MonsterDiffusion\n"
+        "models.VGG19, models.ResMem, models.SimulacraAesthetic, models.TransformersOpenAICLIP\n"
+        "losses.LPIPS, losses.StyleTransfer, losses.Memorability, losses.SimulacraAesthetic\n"
+        "losses.AestheticVisualAssessment, losses.TransformersOpenAICLIP\n"
         "from perceptor_tpu_torch.models.stable_diffusion import Conditioning\n"
         "ld = models.latent_diffusion\n"
         "ld.Text2Image, ld.Face, ld.SuperResolution, ld.VQModel, ld.VectorQuantizer\n"
