@@ -144,7 +144,25 @@ exits non-zero without a result line:
 26. aesthetic_guided_sample  2 CFG-guided SD steps at 512px under
                   Simulacra ViT-L-14 and LPIPS-vgg to the init image: 21 /
                   21 / 21 launches a step, finite latents and losses;
-27. timings       each kernel, its plain version and PyTorch's
+27. depth_models  each depth model at full width on a 512px image, batch 1:
+                  `MidasDepth` dpt_large, dpt_hybrid, midas_v21 and
+                  midas_v21_small (bf16; the negated depth <= 0, each within
+                  5e-2 relative L2 of an fp32 build of the same weights) and
+                  AdaBins "nyu" (`adabins_depth.predict` over a seeded
+                  full-width `UnetAdaptiveBins`, the depth within its range):
+                  parameters, the depth's shape and range, forward and
+                  forward + backward ms, a profiled forward + backward, peak
+                  memory, no flash launch, a finite nonzero input gradient;
+28. depth_optimize  20 Adam steps of a 512px `Raw` from the init image under
+                  `losses.CLIP("ViT-B-32")` with the prompt and
+                  `losses.MidasDepth("dpt_large")` to the striped image's
+                  depth: the loss falls, no flash launch, ms a step, a
+                  profiled step;
+29. depth_guided_sample  2 CFG-guided SD steps at 512px under
+                  `losses.MidasDepth("dpt_hybrid")` to the init image's
+                  depth: 21 / 21 / 21 launches a step, finite latents and
+                  losses;
+30. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
                   backward where it takes the head_dim (d <= 256), beside
@@ -247,6 +265,13 @@ PER_STEP = {
     "perceptual_losses": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "perceptual_optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "aesthetic_guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
+    # the depth models, per forward + backward and per optimization step: the
+    # longest attention is 577 tokens (DPT's ViTs at 384px) and AdaBins'
+    # mini-ViT writes its own softmax; guided SD sampling under the depth
+    # loss launches `guided_sample`'s
+    "depth_models": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "depth_optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "depth_guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -335,6 +360,21 @@ OPTIMIZE_OBJECTIVES = (
 GUIDED_OBJECTIVES = ["simulacra_ViT-L-14", "lpips_vgg"]
 PERCEPTUAL_STEPS = 20
 AESTHETIC_GUIDED_STEPS = 2
+# the depth slice on 512px images, batch 1: MiDaS's four architectures at
+# full width through `models.MidasDepth` (each also built in fp32, the same
+# weights, for the bf16 gate), AdaBins "nyu" through
+# `models.adabins_depth.predict` over a seeded full-width network (no
+# weights are in the tree, and the wrapper refuses full width without
+# them); 20 Adam steps of a 512px `Raw` under CLIP and the dpt_large depth
+# loss; 2 CFG-guided SD steps under the dpt_hybrid depth loss
+MIDAS_NAMES = ("dpt_large", "dpt_hybrid", "midas_v21", "midas_v21_small")
+ADABINS_NAME = "nyu"
+DEPTH_OPTIMIZE_MODEL = "dpt_large"
+DEPTH_GUIDED_MODEL = "dpt_hybrid"
+DEPTH_STEPS = 20
+DEPTH_GUIDED_STEPS = 2
+# a bf16 depth map against the fp32 build's of the same weights, relative L2
+DEPTH_BF16_RTOL = 5e-2
 # a loss between an image and itself: LPIPS's normalized features cancel
 # exactly, StyleTransfer's fp32 Gram matrices to rounding
 LPIPS_SELF_ATOL = 1e-6
@@ -2215,24 +2255,22 @@ def phase_perceptual_optimize(fa):
     return launches, measured
 
 
-def phase_aesthetic_guided_sample(fa):
+def guided_sample_phase(fa, path, objectives, steps, extra) -> tuple:
     """`engine.guided_sample` on SD at 512px with CFG 7 and guidance scale
-    0.5 under `SimulacraAesthetic("ViT-L-14")` and `LPIPS("vgg")` to the
-    init image, AESTHETIC_GUIDED_STEPS steps: 21 launches of each kernel a
-    step, finite latents and losses, ms per step, peak memory. Returns
-    (launches, launches per step)."""
+    0.5 under `objectives`, `steps` steps from seeded latents: launches a
+    step held to PER_STEP[path], finite latents and losses, ms per step,
+    peak memory; `extra` joins the phase's line. Returns (launches,
+    launches per step)."""
     import torch
 
     from perceptor_tpu_torch.engine import guided_sample
     from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
 
-    init, _, style = perceptual_images()
-    objectives = [perceptual_objective(name, init, style)[0] for name in GUIDED_OBJECTIVES]
     sd = StableDiffusion(MODEL, device="cuda", seed=0)
     uncond, cond = sd.conditioning([""]), sd.conditioning([PROMPT])
     latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE),
                                          torch.Generator("cuda").manual_seed(23))
-    pairs = sd.schedule_indices(AESTHETIC_GUIDED_STEPS)
+    pairs = sd.schedule_indices(steps)
     options = dict(conditioning=cond, uncond_conditioning=uncond, cfg_scale=CFG_SCALE,
                    guidance_scale=0.5)
     guided_sample(sd, objectives, latents, pairs[:1], **options)  # warm-up
@@ -2250,18 +2288,152 @@ def phase_aesthetic_guided_sample(fa):
     launches = dict(fa.LAUNCHES)
     k = len(pairs)
     measured = per_step(launches, k)
-    check_per_step("aesthetic_guided_sample", measured)
+    check_per_step(path, measured)
     if not (torch.isfinite(out).all() and torch.isfinite(history).all()):
-        raise AssertionError("aesthetic_guided_sample: non-finite latents or losses")
+        raise AssertionError(f"{path}: non-finite latents or losses")
     emit({
-        "phase": "aesthetic_guided_sample", "ok": True, "model": MODEL, "steps": k,
-        "pairs": pairs.tolist(), "objectives": GUIDED_OBJECTIVES,
+        "phase": path, "ok": True, "model": MODEL, "steps": k, "pairs": pairs.tolist(), **extra,
         "guidance_scale": 0.5, "cfg_scale": CFG_SCALE, "losses": history.tolist(),
         "latents_shape": list(out.shape), "ms_per_step": start.elapsed_time(end) / k,
         "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches, "launches_per_step": measured,
     })
     return launches, measured
+
+
+def phase_aesthetic_guided_sample(fa):
+    """`guided_sample_phase` under `SimulacraAesthetic("ViT-L-14")` and
+    `LPIPS("vgg")` to the init image, AESTHETIC_GUIDED_STEPS steps: 21
+    launches of each kernel a step."""
+    init, _, style = perceptual_images()
+    objectives = [perceptual_objective(name, init, style)[0] for name in GUIDED_OBJECTIVES]
+    return guided_sample_phase(fa, "aesthetic_guided_sample", objectives,
+                               AESTHETIC_GUIDED_STEPS, {"objectives": GUIDED_OBJECTIVES})
+
+def depth_record(fa, fn, x) -> dict:
+    """One depth model `fn` (images -> depth) on `x`: the depth's shape and
+    range, its nonzero share, forward and forward + backward ms (`time_ms`),
+    one forward + backward profiled, its peak memory, its flash launches
+    (held to PER_STEP["depth_models"]) and a finite, nonzero input
+    gradient. Returns (record, depth, launches)."""
+    import torch
+
+    def forward_backward():
+        images = x.clone().requires_grad_(True)
+        depth = fn(images)
+        (grad,) = torch.autograd.grad(depth.float().mean(), images)
+        return depth, grad
+
+    forward_backward()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    depth, grad = forward_backward()
+    depth = depth.detach()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = dict(fa.LAUNCHES)
+    check_per_step("depth_models", per_step(launched, 1))
+    grad_max = float(grad.abs().max())
+    if not (torch.isfinite(depth).all() and torch.isfinite(grad).all() and grad_max > 0):
+        raise AssertionError(f"depth_models: non-finite depth or gradient, |grad| max {grad_max}")
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: fn(x), reps=10)
+    return {
+        "depth_shape": list(depth.shape), "depth_min": float(depth.min()),
+        "depth_max": float(depth.max()), "depth_nonzero_share": float((depth != 0).float().mean()),
+        "fwd_ms": forward_ms, "fwd_bwd_ms": time_ms(forward_backward, reps=10),
+        "profile": profile_summary(forward_backward), "peak_mem_bytes": peak,
+        "grad_abs_max": grad_max, "flash_launches": launched,
+    }, depth, launched
+
+
+def phase_depth_models(fa):
+    """Each depth model at full width on a 512px image, batch 1
+    (`depth_record`): MiDaS's four through `models.MidasDepth` (the negated
+    depth at 384px, or 256px for the small one, <= 0), each bf16 build
+    within DEPTH_BF16_RTOL of an fp32 build of the same weights; AdaBins
+    "nyu" through `adabins_depth.predict` (the depth at 512px within its
+    range). Returns (launches, launches per forward + backward)."""
+    import torch
+
+    from perceptor_tpu_torch import models
+    from perceptor_tpu_torch.core.init import random_module
+    from perceptor_tpu_torch.models import adabins_depth
+
+    _, other, _ = perceptual_images()
+    records, launches = {}, {name: 0 for name in REPLACES}
+    for name in MIDAS_NAMES:
+        model = models.MidasDepth(name)
+        record, depth, launched = depth_record(fa, model, other)
+        if not float(depth.max()) <= 0.0:
+            raise AssertionError(f"depth_models {name}: negated depth above 0")
+        fp32 = models.MidasDepth(name, optimize=False)
+        fp32.load_state_dict({k: v.float() for k, v in model.module.state_dict().items()})
+        with torch.no_grad():
+            err = _rel_l2(depth, fp32(other))
+        if not err <= DEPTH_BF16_RTOL:
+            raise AssertionError(f"depth_models {name}: bf16 vs fp32 relative L2 {err}")
+        records[name] = {"parameters": sum(p.numel() for p in model.module.parameters()),
+                         "image_size": list(model.image_size), **record,
+                         "bf16_vs_fp32_rel_l2": err, "tol": DEPTH_BF16_RTOL}
+        for kernel in launches:
+            launches[kernel] += launched[kernel]
+        del model, fp32
+        torch.cuda.empty_cache()
+    spec = adabins_depth.DATASETS[ADABINS_NAME]
+    config = adabins_depth.AdaBinsConfig(min_val=spec["min_depth"], max_val=spec["max_depth"])
+    net = random_module(lambda cfg: adabins_depth.UnetAdaptiveBins(cfg, dtype=torch.bfloat16),
+                        config, torch.device("cuda"), torch.Generator("cuda").manual_seed(0),
+                        torch.float32)
+    record, depth, launched = depth_record(
+        fa, lambda images: adabins_depth.predict(net, images, spec["min_depth"],
+                                                 spec["max_depth"]), other)
+    if not spec["min_depth"] <= float(depth.min()) <= float(depth.max()) <= spec["max_depth"]:
+        raise AssertionError(f"depth_models adabins: depth outside {spec}")
+    records[f"adabins_{ADABINS_NAME}"] = {
+        "parameters": sum(p.numel() for p in net.parameters()), **record}
+    for kernel in launches:
+        launches[kernel] += launched[kernel]
+    emit({"phase": "depth_models", "ok": True, "image_size": IMAGE_SIZE, "models": records})
+    return launches, per_step(launches, len(records))
+
+
+def phase_depth_optimize(fa):
+    """`engine.optimize`, DEPTH_STEPS Adam steps of a 512px `Raw` drawer from
+    the init image under `losses.CLIP(CLIP_NAME)` with the prompt and
+    `losses.MidasDepth(DEPTH_OPTIMIZE_MODEL)` to the depth of the striped
+    image (`add_images_`): the total falls, no flash launch; ms a step, one
+    profiled step, peak memory. Returns (launches, launches per step)."""
+    from perceptor_tpu_torch import drawers, losses
+
+    init, _, stripes = perceptual_images()
+    objectives = [losses.CLIP(CLIP_NAME).add_texts_([PROMPT]),
+                  losses.MidasDepth(DEPTH_OPTIMIZE_MODEL).add_images_(stripes)]
+    drawer = drawers.Raw(init)
+    record = run_optimize(fa, "depth_optimize", drawer, objectives, DEPTH_STEPS)
+    launches = record["flash_launches"]
+    measured = per_step(launches, DEPTH_STEPS)
+    check_per_step("depth_optimize", measured)
+    emit({"phase": "depth_optimize", "ok": True, "image_size": IMAGE_SIZE,
+          "objectives": [f"clip_{CLIP_NAME}", f"midas_{DEPTH_OPTIMIZE_MODEL}"], "prompt": PROMPT,
+          **record, "profile": step_profile(drawer, objectives)})
+    return launches, measured
+
+
+def phase_depth_guided_sample(fa):
+    """`engine.guided_sample` on SD at 512px with CFG 7 and guidance scale
+    0.5 under `losses.MidasDepth(DEPTH_GUIDED_MODEL)` to the init image's
+    depth, DEPTH_GUIDED_STEPS steps: 21 launches of each kernel a step,
+    finite latents and losses, ms per step, peak memory. Returns
+    (launches, launches per step)."""
+    from perceptor_tpu_torch import losses
+
+    init, _, _ = perceptual_images()
+    objective = losses.MidasDepth(DEPTH_GUIDED_MODEL).add_images_(init)
+    return guided_sample_phase(fa, "depth_guided_sample", [objective], DEPTH_GUIDED_STEPS,
+                               {"objectives": [f"midas_{DEPTH_GUIDED_MODEL}"]})
 
 
 def phase_timings(fa, peak_flops, peak_bw) -> list:
@@ -2393,6 +2565,7 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
                 "inpaint_sample": sum(r["ms"] * r["per_step"] for r in sampling),
                 "inpaint_guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 "aesthetic_guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
+                "depth_guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 # per UNet evaluation (forward only) and per guided step
                 "adm_sample": adm if name == "flash_fwd" else 0.0,
                 "adm_guided_sample": adm,
@@ -2492,10 +2665,12 @@ def main() -> int:
     del clip
     torch.cuda.empty_cache()
     # the latent-diffusion family, one model at a time, then
-    # MonsterDiffusion, CLIP's ResNet towers and the perceptual losses
+    # MonsterDiffusion, CLIP's ResNet towers, the perceptual losses and the
+    # depth models
     for phase in (phase_ldm_text2image, phase_ldm_face, phase_ldm_super_resolution,
                   phase_monster_sample, phase_clip_resnet, phase_perceptual_losses,
-                  phase_perceptual_optimize, phase_aesthetic_guided_sample):
+                  phase_perceptual_optimize, phase_aesthetic_guided_sample, phase_depth_models,
+                  phase_depth_optimize, phase_depth_guided_sample):
         path = phase.__name__.removeprefix("phase_")
         launches[path], measured[path] = phase(fa)
         torch.cuda.empty_cache()

@@ -8,7 +8,8 @@ perceptor_tpu/models/guided_diffusion/convert.py,
 perceptor_tpu/models/velocity_diffusion/convert.py,
 perceptor_tpu/models/monster_diffusion/convert.py,
 perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py,
-perceptor_tpu/models/vgg.py, lpips.py, resnet.py and resmem.py):
+perceptor_tpu/models/vgg.py, lpips.py, resnet.py, resmem.py,
+adabins_depth.py and midas_depth.py):
 
     conv   (kh, kw, I, O) -> (O, I, kh, kw)
     dense  (I, O)         -> (O, I)      (ADM's 1x1 conv1d: (O, I, 1))
@@ -18,11 +19,13 @@ The port's keys are diffusers' (UNet, VAE, the VQ stage's backbone),
 open_clip's (CLIP, both image towers), OpenAI guided_diffusion's (ADM;
 CompVis's for its spatial transformers), k-diffusion's (MonsterDiffusion)
 x-transformer's (BERT), torchvision's (the VGG, AlexNet, SqueezeNet and
-ResNet trunks), lpips' (its heads) and ResMem's, so the JAX package's own
-`unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the three
+ResNet trunks), lpips' (its heads), ResMem's, gen-efficientnet's, the
+AdaBins repository's and MiDaS's (timm's ViT inside), so the JAX package's
+own `unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the three
 `from_torch`, `convert_bert`, `convert_torchvision_features`,
-`convert_resnet` and `convert_resmem` map these state_dicts back to the
-same trees.
+`convert_resnet`, `convert_resmem`, `convert_efficientnet`,
+`convert_adabins`, `convert_dpt`, `convert_midas_net` and
+`convert_midas_net_small` map these state_dicts back to the same trees.
 
 One map is torch to torch: `open_clip_state_dict_from_hf` takes an HF
 `transformers` CLIPModel state_dict to the port's open_clip names.
@@ -36,9 +39,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from perceptor_tpu_torch.models.adabins_depth import AdaBinsConfig, EfficientNetConfig
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
 from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
 from perceptor_tpu_torch.models.latent_diffusion.bert import BERTConfig
+from perceptor_tpu_torch.models.midas_depth import DPTConfig, MidasNetConfig, MidasNetSmallConfig
 from perceptor_tpu_torch.models.monster_diffusion.net import MonsterConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
@@ -614,4 +619,175 @@ def open_clip_state_dict_from_hf(hf_state_dict: Mapping, cfg: CLIPConfig) -> Sta
     _hf_blocks(hf, "vision_model.encoder.layers", "visual.transformer.resblocks",
                cfg.vision_layers, sd)
     _hf_blocks(hf, "text_model.encoder.layers", "transformer.resblocks", cfg.text_layers, sd)
+    return sd
+
+
+def efficientnet_state_dict_from_jax(params: Mapping, cfg: EfficientNetConfig,
+                                     prefix: str = "") -> StateDict:
+    """Flax `EfficientNetFeatures` params -> gen-efficientnet names under
+    `prefix` (`conv_stem`, `bn1`, `blocks.{s}.{i}.*`, `conv_head`); the
+    inverse of the JAX package's `models/adabins_depth.py
+    convert_efficientnet`. A depthwise kernel (k, k, 1, C) becomes (C, 1, k, k)
+    by the conv rule."""
+    sd: StateDict = {}
+    _conv(params["conv_stem"], f"{prefix}conv_stem", sd)
+    _batch_norm(params["bn1"], f"{prefix}bn1", sd)
+    for s, spec in enumerate(cfg.blocks):
+        for i in range(spec.count):
+            block, dst = params[f"blocks_{s}_{i}"], f"{prefix}blocks.{s}.{i}"
+            for name, p in block.items():
+                if name == "se":
+                    _conv(p["conv_reduce"], f"{dst}.se.conv_reduce", sd)
+                    _conv(p["conv_expand"], f"{dst}.se.conv_expand", sd)
+                elif name.startswith("bn"):
+                    _batch_norm(p, f"{dst}.{name}", sd)
+                else:
+                    _conv(p, f"{dst}.{name}", sd)
+    if cfg.include_head:
+        _conv(params["conv_head"], f"{prefix}conv_head", sd)
+    return sd
+
+
+def adabins_state_dict_from_jax(params: Mapping, cfg: AdaBinsConfig) -> StateDict:
+    """Flax `UnetAdaptiveBins` params -> the AdaBins repository's names
+    (`encoder.original_model.*`, `decoder.*`, `adaptive_bins_layer.*`,
+    `conv_out.0`); the inverse of the JAX package's `convert_adabins`. The
+    transformer layers' (E, 3E) `in_proj` kernel is torch's
+    `self_attn.in_proj_weight` (3E, E)."""
+    sd = efficientnet_state_dict_from_jax(params["encoder"], cfg.encoder,
+                                          "encoder.original_model.")
+    decoder = params["decoder"]
+    _conv(decoder["conv2"], "decoder.conv2", sd)
+    for up in ("up1", "up2", "up3", "up4"):
+        for index, name in ((0, "conv_0"), (3, "conv_3")):
+            _conv(decoder[up][name], f"decoder.{up}._net.{index}", sd)
+        for index, name in ((1, "bn_1"), (4, "bn_4")):
+            _batch_norm(decoder[up][name], f"decoder.{up}._net.{index}", sd)
+    _conv(decoder["conv3"], "decoder.conv3", sd)
+    bins, dst = params["adaptive_bins_layer"], "adaptive_bins_layer"
+    pt = bins["patch_transformer"]
+    _conv(pt["embedding_convPxP"], f"{dst}.patch_transformer.embedding_convPxP", sd)
+    sd[f"{dst}.patch_transformer.positional_encodings"] = _t(pt["positional_encodings"])
+    for i in range(cfg.transformer_layers):
+        layer = pt[f"layers_{i}"]
+        lp = f"{dst}.patch_transformer.transformer_encoder.layers.{i}"
+        sd[f"{lp}.self_attn.in_proj_weight"] = _t(np.asarray(layer["in_proj"]["kernel"]).T)
+        sd[f"{lp}.self_attn.in_proj_bias"] = _t(layer["in_proj"]["bias"])
+        _linear(layer["out_proj"], f"{lp}.self_attn.out_proj", sd)
+        for name in ("linear1", "linear2"):
+            _linear(layer[name], f"{lp}.{name}", sd)
+        for name in ("norm1", "norm2"):
+            _norm(layer[name], f"{lp}.{name}", sd)
+    _conv(bins["conv3x3"], f"{dst}.conv3x3", sd)
+    for j in (0, 2, 4):
+        _linear(bins[f"regressor_{j}"], f"{dst}.regressor.{j}", sd)
+    _conv(params["conv_out"], "conv_out.0", sd)
+    return sd
+
+
+def _midas_scratch(params: Mapping, rn: str, head: str, sd: StateDict) -> None:
+    """The MiDaS `scratch.*` of a flax DPT / MidasNet / MidasNetSmall:
+    `rn.format(j)` -> `layer{j + 1}_rn` for j = 0 .. 3 (DPT's `scratch_{j}`,
+    v2.1's `layer{j + 1}_rn`), the fusion blocks' residual units and
+    out_conv where the tree has them, and `head.format(k)` for k = 1 .. 3 ->
+    `output_conv.{0, 2, 4}`."""
+    for j in range(4):
+        _conv(params[rn.format(j, j + 1)], f"scratch.layer{j + 1}_rn", sd)
+        name, dst = f"refinenet{j + 1}", f"scratch.refinenet{j + 1}"
+        for unit in (1, 2):
+            for conv in (1, 2):
+                key = f"{name}_rcu{unit}_conv{conv}"
+                if key in params:
+                    _conv(params[key], f"{dst}.resConfUnit{unit}.conv{conv}", sd)
+        if f"{name}_out" in params:
+            _conv(params[f"{name}_out"], f"{dst}.out_conv", sd)
+    for k, index in ((1, 0), (2, 2), (3, 4)):
+        _conv(params[head.format(k)], f"scratch.output_conv.{index}", sd)
+
+
+def dpt_state_dict_from_jax(params: Mapping, cfg: DPTConfig) -> StateDict:
+    """Flax `DPTDepthModel` params (plain or hybrid) -> the MiDaS DPT names
+    (`pretrained.model.*` timm's, `pretrained.act_postprocess{k}.{0,3,4}`,
+    `scratch.*`); the inverse of the JAX package's `convert_dpt`. The
+    ConvTranspose2d weights `resample_{0,1}_weight` are in torch's layout
+    already."""
+    backbone, m = params["backbone"], "pretrained.model"
+    sd: StateDict = {}
+    _conv(backbone["patch_embed"], f"{m}.patch_embed.proj", sd)
+    sd[f"{m}.cls_token"] = _t(backbone["cls_token"])
+    sd[f"{m}.pos_embed"] = _t(backbone["pos_embed"])
+    if cfg.hybrid:
+        stem, b = backbone["stem"], f"{m}.patch_embed.backbone"
+        _conv(stem["stem_conv"], f"{b}.stem.conv", sd)
+        _norm(stem["stem_norm"], f"{b}.stem.norm", sd)
+        for s, count in enumerate(cfg.stem.layers):
+            for i in range(count):
+                block, dst = stem[f"stage{s}_{i}"], f"{b}.stages.{s}.blocks.{i}"
+                for j in (1, 2, 3):
+                    _conv(block[f"conv{j}"], f"{dst}.conv{j}", sd)
+                    _norm(block[f"norm{j}"], f"{dst}.norm{j}", sd)
+                if "downsample_conv" in block:
+                    _conv(block["downsample_conv"], f"{dst}.downsample.conv", sd)
+                    _norm(block["downsample_norm"], f"{dst}.downsample.norm", sd)
+    for i in range(cfg.vit_layers):
+        dst = f"{m}.blocks.{i}"
+        for src, name in (("norm1", "norm1"), ("norm2", "norm2")):
+            _norm(backbone[f"{src}_{i}"], f"{dst}.{name}", sd)
+        for src, name in (("qkv", "attn.qkv"), ("attn_proj", "attn.proj"), ("fc1", "mlp.fc1"),
+                          ("fc2", "mlp.fc2")):
+            _linear(backbone[f"{src}_{i}"], f"{dst}.{name}", sd)
+    for idx in range(4):
+        if f"readout_{idx}" not in params:  # the hybrid's identity act_postprocess1 / 2
+            continue
+        pp = f"pretrained.act_postprocess{idx + 1}"
+        _linear(params[f"readout_{idx}"], f"{pp}.0.project.0", sd)
+        _conv(params[f"project_{idx}"], f"{pp}.3", sd)
+        if idx in (0, 1):
+            sd[f"{pp}.4.weight"] = _t(params[f"resample_{idx}_weight"])
+            sd[f"{pp}.4.bias"] = _t(params[f"resample_{idx}_bias"])
+        elif idx == 3:
+            _conv(params["resample_3"], f"{pp}.4", sd)
+    _midas_scratch(params, "scratch_{0}", "head_conv{}", sd)
+    return sd
+
+
+def midas_net_state_dict_from_jax(params: Mapping, cfg: MidasNetConfig) -> StateDict:
+    """Flax `MidasNet` params -> MiDaS v2.1's names: the torchvision trunk
+    (`resnet_state_dict_from_jax`) regrouped as `_make_resnet_backbone`
+    does (`pretrained.layer1.{0,1,4}` = conv1, bn1, layer1;
+    `pretrained.layer{2,3,4}`), then `scratch.*`; the inverse of the JAX
+    package's `convert_midas_net`. `cfg` names the model; the map reads the
+    trunk's blocks from `params`."""
+    regroup = (("conv1.", "pretrained.layer1.0."), ("bn1.", "pretrained.layer1.1."),
+               ("layer1.", "pretrained.layer1.4."), ("layer", "pretrained.layer"))
+    sd: StateDict = {}
+    for key, value in resnet_state_dict_from_jax(params["backbone"]).items():
+        old, new = next((old, new) for old, new in regroup if key.startswith(old))
+        sd[new + key[len(old):]] = value
+    _midas_scratch(params, "layer{1}_rn", "out_conv{}", sd)
+    return sd
+
+
+# the EfficientNet trunk's prefixes -> MidasNetSmall's regrouping
+# (`_make_efficientnet_backbone`): layer1 = stem + stages 0-1, layer2 =
+# stage 2, layer3 = stages 3-4, layer4 = stages 5-6
+_LITE_REGROUP = (
+    ("conv_stem.", "pretrained.layer1.0."), ("bn1.", "pretrained.layer1.1."),
+    ("blocks.0.", "pretrained.layer1.3."), ("blocks.1.", "pretrained.layer1.4."),
+    ("blocks.2.", "pretrained.layer2.0."), ("blocks.3.", "pretrained.layer3.0."),
+    ("blocks.4.", "pretrained.layer3.1."), ("blocks.5.", "pretrained.layer4.0."),
+    ("blocks.6.", "pretrained.layer4.1."),
+)
+
+
+def midas_net_small_state_dict_from_jax(params: Mapping, cfg: MidasNetSmallConfig) -> StateDict:
+    """Flax `MidasNetSmall` params -> midas_v21_small's names: the
+    gen-efficientnet trunk regrouped into `pretrained.layer{1-4}`, then
+    `scratch.*`; the inverse of the JAX package's
+    `convert_midas_net_small`."""
+    sd: StateDict = {}
+    for key, value in efficientnet_state_dict_from_jax(params["backbone"], cfg.backbone).items():
+        old, new = next((old, new) for old, new in _LITE_REGROUP if key.startswith(old))
+        sd[new + key[len(old):]] = value
+    _midas_scratch(params, "layer{1}_rn", "out_conv{}", sd)
     return sd

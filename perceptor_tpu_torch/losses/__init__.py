@@ -22,11 +22,12 @@ _LAZY = {
         "perceptor_tpu_torch.losses.aesthetic_visual_assessment", "AestheticVisualAssessment"),
     "TransformersOpenAICLIP": (
         "perceptor_tpu_torch.losses.transformers_openai_clip", "TransformersOpenAICLIP"),
+    "MidasDepth": ("perceptor_tpu_torch.losses.midas_depth", "MidasDepth"),
 }
 
 _NOT_PORTED = (
-    "BLIP", "CLOOB", "SLIP", "RuCLIP", "LiT", "OWLViT", "MidasDepth",
-    "SuperResolution", "SuperResolutionDiscriminator",
+    "BLIP", "CLOOB", "SLIP", "RuCLIP", "LiT", "OWLViT", "SuperResolution",
+    "SuperResolutionDiscriminator",
 )
 
 __all__ = ["LossInterface", "PromptBankLoss", "Smoothness", "Resize", "SphericalDistance"] + list(

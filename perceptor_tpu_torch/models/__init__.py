@@ -17,13 +17,14 @@ _EXPORTS = {
     "SimulacraAesthetic": ("perceptor_tpu_torch.models.simulacra_aesthetic", "SimulacraAesthetic"),
     "TransformersOpenAICLIP": (
         "perceptor_tpu_torch.models.transformers_openai_clip", "TransformersOpenAICLIP"),
+    "MidasDepth": ("perceptor_tpu_torch.models.midas_depth", "MidasDepth"),
+    "AdaBinsDepth": ("perceptor_tpu_torch.models.adabins_depth", "AdaBinsDepth"),
     # the subpackage itself (Text2Image, Face, SuperResolution, ...)
     "latent_diffusion": ("perceptor_tpu_torch.models.latent_diffusion", None),
 }
 
 _NOT_PORTED = (
-    "DeepImagePrior", "SuperResolution", "MidasDepth", "AdaBinsDepth",
-    "AestheticVisualAssessment", "BLIP", "CLOOB", "SLIP", "LiT", "RuCLIP",
+    "DeepImagePrior", "SuperResolution", "BLIP", "CLOOB", "SLIP", "LiT", "RuCLIP",
     "GlideCLIP", "OWLViT", "StyleGANXL",
 )
 

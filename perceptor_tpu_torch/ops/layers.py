@@ -7,9 +7,13 @@ dtype before the matmul, so a module whose weights are stored in bf16
 biases and norms stay fp32 in storage. `GroupNorm` and `LayerNorm` compute
 and return fp32 (flax norms with `dtype=float32`), and so does
 `FrozenBatchNorm2d`, the inference-mode BatchNorm of the CLIP ResNets.
+`pad_same` and `Conv2dSame` give TensorFlow's "SAME" padding, which is
+asymmetric where a stride meets an even size.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +34,40 @@ class Conv2d(nn.Conv2d):
         w = self.weight
         b = None if self.bias is None else self.bias.to(w.dtype)
         return self._conv_forward(x.to(w.dtype), w, b)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        b = None if self.bias is None else self.bias.to(w.dtype)
+        return F.conv_transpose2d(x.to(w.dtype), w, b, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """Pad the trailing two dims as TensorFlow's "SAME" (lax / flax
+    `padding="SAME"`): `total // 2` before and the rest after, so a stride
+    on an even size pads one more pixel after than before (7x7/2 on 384:
+    2 and 3), where PyTorch's symmetric `padding=` is a pixel off. `value`
+    is -inf for a max pool."""
+    pads = []
+    for size in (x.shape[-1], x.shape[-2]):  # F.pad lists the last dim first
+        total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads, value=value)
+
+
+class Conv2dSame(Conv2d):
+    """`Conv2d` with "SAME" padding for a square kernel and stride
+    (gen-efficientnet's `Conv2dSame`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, groups: int = 1, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, groups=groups,
+                         bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(pad_same(x, self.kernel_size[0], self.stride[0]))
 
 
 class GroupNorm(nn.GroupNorm):

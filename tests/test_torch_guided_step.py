@@ -173,7 +173,8 @@ def test_port_imports_no_jax():
         "             'models.transformers_openai_clip', 'models.simulacra_aesthetic',\n"
         "             'losses.lpips', 'losses.style_transfer', 'losses.memorability',\n"
         "             'losses.transformers_openai_clip', 'losses.simulacra_aesthetic',\n"
-        "             'losses.aesthetic_visual_assessment'):\n"
+        "             'losses.aesthetic_visual_assessment', 'models.adabins_depth',\n"
+        "             'models.midas_depth', 'losses.midas_depth'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
@@ -183,6 +184,7 @@ def test_port_imports_no_jax():
         "models.VGG19, models.ResMem, models.SimulacraAesthetic, models.TransformersOpenAICLIP\n"
         "losses.LPIPS, losses.StyleTransfer, losses.Memorability, losses.SimulacraAesthetic\n"
         "losses.AestheticVisualAssessment, losses.TransformersOpenAICLIP\n"
+        "models.MidasDepth, models.AdaBinsDepth, losses.MidasDepth\n"
         "from perceptor_tpu_torch.models.stable_diffusion import Conditioning\n"
         "ld = models.latent_diffusion\n"
         "ld.Text2Image, ld.Face, ld.SuperResolution, ld.VQModel, ld.VectorQuantizer\n"
