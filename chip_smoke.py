@@ -27,6 +27,14 @@ exits non-zero without a result line:
 3. profile        one guided step under torch.profiler: device time by
                   kernel and the device's busy share, against the profiled
                   step and against the same step timed unprofiled;
+   flops          the guided step's model FLOPs (`utils.flops`, every
+                  attention on the plain route) less the kernel route's:
+                  exactly 4 b h s^2 d forward plus 8 b h s^2 d backward over
+                  its 11 attention sites;
+   guided_step_remat  2 guided steps of a `remat=True` build beside 2 of the
+                  plain one: 21 / 11 / 11 launches a step (the UNet's
+                  forward runs again in the backward), the same losses bit
+                  for bit, each one's peak memory;
 4. route_parity   the UNet forward and its latent gradient, a batch-2 CFG
                   UNet evaluation, and the VAE decode, through the kernels
                   against the plain attention route (and both against an
@@ -161,7 +169,7 @@ exits non-zero without a result line:
 29. depth_guided_sample  2 CFG-guided SD steps at 512px under
                   `losses.MidasDepth("dpt_hybrid")` to the init image's
                   depth: 21 / 21 / 21 launches a step, finite latents and
-                  losses;
+                  losses; run twice, the two loss histories bitwise equal;
 30. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
@@ -225,6 +233,10 @@ LDM_SITE_PATHS = ("ldm_text2image", "ldm_face", "ldm_text2image_decode")
 # its counts and holds them against this table.
 PER_STEP = {
     "guided_step": {"flash_fwd": 11, "flash_dq": 11, "flash_dkv": 11},
+    # the same step with `remat`: the backward runs each UNet res and
+    # transformer block's forward again, so the UNet's 10 sites launch the
+    # forward twice; the VAE is not rematerialized (as in JAX)
+    "guided_step_remat": {"flash_fwd": 21, "flash_dq": 11, "flash_dkv": 11},
     "sample": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
     "guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
     "guided_sample_text": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
@@ -237,6 +249,11 @@ PER_STEP = {
     # cc12m_1_cfg at 256px: attention at 16 x 16 tokens and below
     "velocity_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "velocity_guided_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # yfcc_2 (bench_cuda.py), per UNet evaluation at 512px and per guided step
+    # at 256px: attention at levels 5-7, 16 x 16 tokens and below at 512px
+    # (8 x 8 at 256px), and CLIP ViT-B/32's 50 tokens
+    "velocity_yfcc2_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "velocity_yfcc2_guided_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     # DeepCache on `sample`: a full step is the batched CFG evaluation; a
     # cached one runs level 0 only (2 down + 3 up spatial transformers)
     "sample_deepcache_full": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
@@ -453,22 +470,15 @@ REPLACES = {
     "flash_dkv": "perceptor_tpu/ops/flash_attention_kernel.py:159",
 }
 FLOPS_PER_S2D = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+# the model FLOPs of an attention, per b h s^2 d: q k^T and p v forward, and
+# the input gradient's four products (the flash backward's 6 + 8 recompute
+# the scores, so the kernels do more than the model)
+MODEL_FLOPS_PER_S2D = {"forward": 4, "backward": 8}
+REMAT_STEPS = 2
 
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
-
-
-def card_peaks(name: str):
-    """(dense bf16 FLOP/s, memory bytes/s) from NVIDIA's data sheets."""
-    upper = name.upper()
-    if "H100" in upper and "PCIE" in upper:
-        return 756e12, 2.0e12
-    if "H100" in upper and "NVL" in upper:
-        return 835e12, 3.9e12
-    if "H200" in upper:
-        return 989e12, 4.8e12
-    return 989e12, 3.35e12  # H100 SXM
 
 
 def site_work(kernel: str, b: int, h: int, s: int, d: int):
@@ -749,6 +759,84 @@ def phase_guided_step(fa, step):
         "launches": launches, "launches_per_step": measured,
     })
     return launches, measured
+
+
+def phase_flops(step) -> None:
+    """The model FLOPs of one guided step (`utils.flops.count_model_flops`,
+    every attention on the plain route) less those of the kernel route,
+    whose launches no counter sees: the plain route's attention products,
+    which must equal MODEL_FLOPS_PER_S2D x b h s^2 d over the step's 11
+    sites, forward (a no-grad `loss_and_noise`) and forward + backward (the
+    step)."""
+    import torch
+
+    from perceptor_tpu_torch.utils.flops import count_flops, count_model_flops
+
+    latents, context = step.initial_inputs()
+
+    def forward():
+        with torch.no_grad():
+            step.loss_and_noise(latents, context)
+
+    def guided():
+        step.guided_denoise_step(latents, context)
+
+    record = {"phase": "flops", "ok": True}
+    forward_s2d = MODEL_FLOPS_PER_S2D["forward"]
+    for name, fn, per_s2d in (("forward", forward, forward_s2d),
+                              ("guided_step", guided, forward_s2d + MODEL_FLOPS_PER_S2D["backward"])):
+        model, kernel_route = count_model_flops(fn), count_flops(fn)
+        torch.cuda.empty_cache()
+        want = sum(n * per_s2d * b * h * s * s * d for _, b, h, s, d, n in SITES)
+        if model - kernel_route != want:
+            raise AssertionError(
+                f"flops {name}: plain-route attention {model - kernel_route}, want {want}")
+        record[name] = {"model_flops": model, "kernel_route_flops": kernel_route,
+                        "attention_flops": model - kernel_route, "want": want}
+    emit(record)
+
+
+def phase_guided_step_remat(fa, step):
+    """REMAT_STEPS guided steps of a `remat` build of the same seeded models
+    beside as many of `step`: launches a step held to
+    PER_STEP["guided_step_remat"], losses bitwise equal to the plain
+    step's, each one's peak memory (from an emptied allocator cache).
+    Returns (launches, launches per step)."""
+    import torch
+
+    from perceptor_tpu_torch import guided_step
+
+    remat = guided_step.build("sd-v1-512", device="cuda", seed=step.seed, remat=True)
+    record, launches = {"phase": "guided_step_remat", "ok": True, "steps": REMAT_STEPS}, {}
+    for name, run in (("plain", step), ("remat", remat)):
+        latents, context = run.initial_inputs()
+        run.guided_denoise_step(latents, context)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        losses = []
+        start.record()
+        for _ in range(REMAT_STEPS):
+            latents, loss = run.guided_denoise_step(latents, context)
+            losses.append(float(loss).hex())
+        end.record()
+        torch.cuda.synchronize()
+        launches[name] = dict(fa.LAUNCHES)
+        record[name] = {"losses": losses, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                        "ms_per_step": start.elapsed_time(end) / REMAT_STEPS,
+                        "launches_per_step": per_step(launches[name], REMAT_STEPS)}
+    check_per_step("guided_step", record["plain"]["launches_per_step"])
+    measured = record["remat"]["launches_per_step"]
+    check_per_step("guided_step_remat", measured)
+    if record["remat"]["losses"] != record["plain"]["losses"]:
+        raise AssertionError(f"guided_step_remat: losses {record['remat']['losses']} differ "
+                             f"from the plain step's {record['plain']['losses']}")
+    emit(record)
+    del remat
+    torch.cuda.empty_cache()
+    return launches["remat"], measured
 
 
 def _set_route(module, use_flash) -> None:
@@ -2260,7 +2348,7 @@ def guided_sample_phase(fa, path, objectives, steps, extra) -> tuple:
     0.5 under `objectives`, `steps` steps from seeded latents: launches a
     step held to PER_STEP[path], finite latents and losses, ms per step,
     peak memory; `extra` joins the phase's line. Returns (launches,
-    launches per step)."""
+    launches per step, losses)."""
     import torch
 
     from perceptor_tpu_torch.engine import guided_sample
@@ -2298,7 +2386,7 @@ def guided_sample_phase(fa, path, objectives, steps, extra) -> tuple:
         "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches, "launches_per_step": measured,
     })
-    return launches, measured
+    return launches, measured, history.tolist()
 
 
 def phase_aesthetic_guided_sample(fa):
@@ -2308,7 +2396,7 @@ def phase_aesthetic_guided_sample(fa):
     init, _, style = perceptual_images()
     objectives = [perceptual_objective(name, init, style)[0] for name in GUIDED_OBJECTIVES]
     return guided_sample_phase(fa, "aesthetic_guided_sample", objectives,
-                               AESTHETIC_GUIDED_STEPS, {"objectives": GUIDED_OBJECTIVES})
+                               AESTHETIC_GUIDED_STEPS, {"objectives": GUIDED_OBJECTIVES})[:2]
 
 def depth_record(fa, fn, x) -> dict:
     """One depth model `fn` (images -> depth) on `x`: the depth's shape and
@@ -2426,14 +2514,22 @@ def phase_depth_guided_sample(fa):
     """`engine.guided_sample` on SD at 512px with CFG 7 and guidance scale
     0.5 under `losses.MidasDepth(DEPTH_GUIDED_MODEL)` to the init image's
     depth, DEPTH_GUIDED_STEPS steps: 21 launches of each kernel a step,
-    finite latents and losses, ms per step, peak memory. Returns
-    (launches, launches per step)."""
+    finite latents and losses, ms per step, peak memory; run twice, the two
+    loss histories bitwise equal. Returns (launches, launches per step)."""
     from perceptor_tpu_torch import losses
 
     init, _, _ = perceptual_images()
     objective = losses.MidasDepth(DEPTH_GUIDED_MODEL).add_images_(init)
-    return guided_sample_phase(fa, "depth_guided_sample", [objective], DEPTH_GUIDED_STEPS,
-                               {"objectives": [f"midas_{DEPTH_GUIDED_MODEL}"]})
+    extra = {"objectives": [f"midas_{DEPTH_GUIDED_MODEL}"]}
+    launches, measured, first = guided_sample_phase(
+        fa, "depth_guided_sample", [objective], DEPTH_GUIDED_STEPS, extra)
+    second = guided_sample_phase(
+        fa, "depth_guided_sample", [objective], DEPTH_GUIDED_STEPS, extra)[2]
+    runs = [[float(x).hex() for x in losses] for losses in (first, second)]
+    if runs[0] != runs[1]:
+        raise AssertionError(f"depth_guided_sample: two runs' losses differ: {runs}")
+    emit({"phase": "depth_guided_sample_repeat", "ok": True, "losses": runs})
+    return launches, measured
 
 
 def phase_timings(fa, peak_flops, peak_bw) -> list:
@@ -2589,6 +2685,8 @@ def main() -> int:
     from perceptor_tpu_torch.models.guided_diffusion import GuidedDiffusion
     from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
     from perceptor_tpu_torch.ops import flash_attention_kernel as fa
+    from perceptor_tpu_torch.utils.bench_env import triton_imports
+    from perceptor_tpu_torch.utils.flops import card_peaks
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2600,7 +2698,7 @@ def main() -> int:
     emit({
         "phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": name, "nvidia_smi": smi, "peak_bf16_flops": peak_flops,
-        "peak_bytes_per_s": peak_bw,
+        "peak_bytes_per_s": peak_bw, "triton": triton_imports(),
     })
 
     t0 = time.perf_counter()
@@ -2616,6 +2714,9 @@ def main() -> int:
     launches, measured = {}, {}
     launches["guided_step"], measured["guided_step"] = phase_guided_step(fa, step)
     phase_profile(step)
+    phase_flops(step)
+    launches["guided_step_remat"], measured["guided_step_remat"] = phase_guided_step_remat(
+        fa, step)
     phase_route_parity(step)
     t0 = time.perf_counter()
     sd = StableDiffusion(MODEL, device="cuda", seed=0)

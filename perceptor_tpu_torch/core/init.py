@@ -23,7 +23,11 @@ def resolve_device(device) -> torch.device:
 
     Also turns TF32 off: fp32 matmuls (the antialiased resize) and
     convolutions run in full fp32, as the JAX code's `Precision.HIGHEST`;
-    the bf16 model is unaffected."""
+    the bf16 model is unaffected. And it pins cuDNN to deterministic
+    convolution algorithms: left free, cuDNN chose a nondeterministic one
+    for the input gradient of fp32 convolutions (dpt_hybrid's ResNetV2
+    trunk, under the depth loss), and a guided step must repeat bit for
+    bit, as the JAX program does."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -33,6 +37,7 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {device}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     return device
 
 

@@ -150,15 +150,18 @@ class GuidedStep:
         return predictions.guided(grad, guidance_scale=GUIDANCE_SCALE).step(self.to_idx)
 
 
-def build(config: str = "sd-v1-512", device="cuda", seed: int = 0) -> GuidedStep:
+def build(config: str = "sd-v1-512", device="cuda", seed: int = 0,
+          remat: bool = False) -> GuidedStep:
     """The guided step at `config` ("sd-v1-512": SD-1.x UNet + VAE at 512px
     with CLIP ViT-B/32 in bf16; "tiny": the TINY configs in fp32), with
     random weights from `seed`, on `device` (CUDA unless the caller passes
-    "cpu")."""
+    "cpu"); `remat` recomputes the UNet's res and transformer blocks in the
+    backward pass."""
     if config not in CONFIGS:
         raise ValueError(f"unknown config {config!r}; known: {sorted(CONFIGS)}")
     device = resolve_device(device)
     cfg = CONFIGS[config]
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, remat=remat))
     gen = torch.Generator(device=device).manual_seed(seed)
     unet = random_module(UNet, cfg.unet, device, gen, cfg.dtype)
     vae = random_module(AutoencoderKL, cfg.vae, device, gen, cfg.dtype)

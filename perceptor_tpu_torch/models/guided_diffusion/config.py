@@ -1,6 +1,5 @@
 """OpenAI ADM (guided diffusion) architecture configs (a copy of
-perceptor_tpu/models/guided_diffusion/config.py; `remat` has no counterpart
-in the port and is left out):
+perceptor_tpu/models/guided_diffusion/config.py):
   "standard"  512px OpenAI/LAION finetune: 256ch, mult (0.5,1,1,2,2,4,4),
               attn at ds 16/32/64, head_channels 64, scale-shift norm,
               resblock up/down, learn_sigma.
@@ -32,6 +31,7 @@ class ADMConfig:
     spatial_transformer: bool = False
     context_dim: int = 0
     transformer_depth: int = 1
+    remat: bool = False  # recompute each res/attention block in backward
 
     def heads_for(self, channels: int) -> int:
         if self.num_head_channels > 0:

@@ -19,12 +19,12 @@ checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
 `load_state_dict` takes real (OpenAI-named) or converted weights
 (`convert.adm_state_dict_from_jax`).
 
-Not ported (ROADMAP queue A): `mesh`/`rules` and checkpoint discovery; JAX's
-`remat` has no counterpart.
+Not ported (ROADMAP queue A): `mesh`/`rules` and checkpoint discovery.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -41,15 +41,17 @@ METHODS = ("ddim", "dpm++")
 
 
 class GuidedDiffusion:
-    def __init__(self, name: str = "standard", fp16: bool = True, device="cuda", seed: int = 0):
+    def __init__(self, name: str = "standard", fp16: bool = True, device="cuda", seed: int = 0,
+                 remat: bool = False):
         """`name` is a key of `config.MODEL_CONFIGS` (standard: the 512px
         ImageNet finetune; pixelart; tiny); `fp16` stores matmul/conv
         weights in bf16 (bf16 compute); weights are random from `seed`;
-        `device` is CUDA unless the caller passes "cpu"."""
+        `device` is CUDA unless the caller passes "cpu"; `remat` recomputes
+        the UNet's res and attention blocks in the backward pass."""
         if name not in adm_config.MODEL_CONFIGS:
             raise ValueError(f"Unknown model name {name}")
         self.name = name
-        self.config = adm_config.MODEL_CONFIGS[name]
+        self.config = dataclasses.replace(adm_config.MODEL_CONFIGS[name], remat=remat)
         self.shape = adm_config.SHAPES[name]
         self.device = resolve_device(device)
         self.dtype = COMPUTE_DTYPE if fp16 else torch.float32

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perceptor_tpu_torch.core.remat import Remat, set_remat
 from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
 from perceptor_tpu_torch.models.stable_diffusion.unet import SpatialTransformer, timestep_embedding
 from perceptor_tpu_torch.ops.attention import attention
@@ -62,7 +63,7 @@ class Conv1x1Tokens(nn.Module):
         return F.linear(tokens.to(w.dtype), w[:, :, 0], self.bias.to(w.dtype))
 
 
-class ResBlock(nn.Module):
+class ResBlock(Remat):
     """GN-SiLU-(resample)-conv, the timestep embedding as a scale-shift on
     the second norm (or added before it), GN-SiLU-conv, plus the (resampled,
     1x1-projected) input."""
@@ -106,7 +107,7 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + h
 
 
-class AttentionBlock(nn.Module):
+class AttentionBlock(Remat):
     """GN -> qkv -> multi-head self-attention over the HW tokens -> proj_out
     + residual. `use_flash` None routes by `ops.attention.flash_route`;
     True/False force a route."""
@@ -229,6 +230,7 @@ class ADMUNet(nn.Module):
         self.out = nn.ModuleList([
             GroupNormSiLU(ch, num_groups=_groups(ch)), nn.Identity(), Conv3x3(ch, cfg.out_channels),
         ])
+        set_remat(self, cfg.remat)
 
     def forward(self, xs, timesteps, context=None):
         if self.config.spatial_transformer:

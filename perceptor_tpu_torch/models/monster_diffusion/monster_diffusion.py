@@ -80,11 +80,15 @@ class MonsterDiffusion:
             ts = ts.expand(batch)
         return ts
 
-    def sigmas(self, ts) -> torch.Tensor:
-        return self._ts(ts)[:, None, None, None]
+    @staticmethod
+    def sigmas(ts) -> torch.Tensor:
+        """(N, 1, 1, 1) fp32 sigmas, on `ts`'s device (the CPU for a number
+        or an array)."""
+        return torch.atleast_1d(torch.as_tensor(ts, dtype=torch.float32))[:, None, None, None]
 
-    def alphas(self, ts) -> torch.Tensor:
-        return torch.ones_like(self.sigmas(ts))
+    @staticmethod
+    def alphas(ts) -> torch.Tensor:
+        return torch.ones_like(MonsterDiffusion.sigmas(ts))
 
     def training_ts(self, size: int, generator: torch.Generator) -> torch.Tensor:
         """log-normal training sigmas, exp(P_mean + P_std N(0, 1))."""
@@ -104,7 +108,7 @@ class MonsterDiffusion:
             if generator is None:
                 raise ValueError("diffuse is stochastic: pass noise= or generator=")
             noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
-        return diffusion_space.decode(x0 + noise * self.sigmas(ts))
+        return diffusion_space.decode(x0 + noise * self.sigmas(self._ts(ts)))
 
     # -- the preconditioned net --------------------------------------------------
 

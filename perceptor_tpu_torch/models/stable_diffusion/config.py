@@ -27,7 +27,7 @@ class UNetConfig:
     n_heads: int = 8
     context_dim: int = 768
     transformer_depth: int = 1
-    remat: bool = False  # JAX-only (jax.checkpoint); the port ignores it
+    remat: bool = False  # recompute each res/transformer block in backward
 
     @property
     def block_channels(self) -> Tuple[int, ...]:

@@ -125,11 +125,13 @@ class StableDiffusion:
         tokenizer: Optional[SimpleTokenizer] = None,
         device="cuda",
         seed: int = 0,
+        remat: bool = False,
     ):
         """`name` is "tiny", "tiny-inpainting" or a key of
         `config.MODEL_CONFIGS`; `fp16` stores matmul/conv weights in bf16
         (bf16 compute); weights are random from `seed`; `device` is CUDA
-        unless the caller passes "cpu"."""
+        unless the caller passes "cpu"; `remat` recomputes the UNet's res and
+        transformer blocks in the backward pass (guidance)."""
         if name in ("tiny", "tiny-inpainting"):
             unet = sd_config.TINY_UNET if name == "tiny" else sd_config.TINY_INPAINT_UNET
             configs = (unet, sd_config.TINY_VAE, sd_config.TINY_TEXT)
@@ -140,6 +142,7 @@ class StableDiffusion:
         self.name = name
         self.device = resolve_device(device)
         self.unet_config, self.vae_config, self.text_config = configs
+        self.unet_config = dataclasses.replace(self.unet_config, remat=remat)
         dtype = COMPUTE_DTYPE if fp16 else torch.float32
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.unet = random_module(UNet, self.unet_config, self.device, gen, dtype)

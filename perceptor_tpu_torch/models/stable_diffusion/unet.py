@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perceptor_tpu_torch.core.remat import Remat, set_remat
 from perceptor_tpu_torch.models.stable_diffusion.config import UNetConfig
 from perceptor_tpu_torch.ops.attention import attention
 from perceptor_tpu_torch.ops.conv_matmul import Conv3x3
@@ -54,7 +55,7 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(emb)))
 
 
-class ResnetBlock(nn.Module):
+class ResnetBlock(Remat):
     """GN-SiLU-conv + time shift + GN-SiLU-conv with skip (diffusers
     ResnetBlock2D)."""
 
@@ -148,7 +149,7 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
-class SpatialTransformer(nn.Module):
+class SpatialTransformer(Remat):
     """GN -> 1x1 proj_in -> transformer blocks over HW tokens -> 1x1
     proj_out + residual."""
 
@@ -264,6 +265,7 @@ class UNet(nn.Module):
 
         self.conv_norm_out = GroupNormSiLU(channels[0])
         self.conv_out = Conv3x3(channels[0], cfg.out_channels)
+        set_remat(self, cfg.remat)
 
     def forward(self, latents, timesteps, context, cache=None, return_cache=False):
         """Denoise. DeepCache: `return_cache=True` also returns the deep

@@ -1,6 +1,5 @@
 """v-diffusion (crowsonkb) UNet architecture configs (a copy of
-perceptor_tpu/models/velocity_diffusion/configs.py; `remat` has no
-counterpart in the port and is left out). The four published checkpoints:
+perceptor_tpu/models/velocity_diffusion/configs.py). The four published checkpoints:
   yfcc_2      (3,512,512)
   yfcc_1      (3,512,512)
   cc12m_1_cfg (3,256,256)  (CLIP-conditioned, FiLM modulation)
@@ -46,6 +45,7 @@ class VNetConfig:
     in_channels: int = 3
     out_channels: int = 3
     mapping: Optional[MappingConfig] = None
+    remat: bool = False  # recompute each conv block in backward
 
 
 YFCC_2 = VNetConfig(

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perceptor_tpu_torch.core.remat import Remat, set_remat
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
 from perceptor_tpu_torch.ops.attention import attention
 from perceptor_tpu_torch.ops.groupnorm import fused_group_norm_act
@@ -53,7 +54,7 @@ def _skip(cls, c_in: int, c_out: int, **kwargs):
     return cls(c_in, c_out, bias=False, **kwargs) if c_in != c_out else nn.Identity()
 
 
-class ResConvBlock(nn.Module):
+class ResConvBlock(Remat):
     """conv3x3-relu-conv3x3(-relu) + 1x1 skip."""
 
     def __init__(self, c_in: int, c_mid: int, c_out: int, is_last: bool = False):
@@ -72,7 +73,7 @@ class ResConvBlock(nn.Module):
         return self.skip(x) + h
 
 
-class ModConvBlock(nn.Module):
+class ModConvBlock(Remat):
     """cc12m FiLM block: conv, GroupNorm(1 group, no learned affine),
     per-sample scale-shift from `cond`, relu, twice, + 1x1 skip. Norm,
     modulation and relu are one fused op (`ops/groupnorm.py`)."""
@@ -215,6 +216,7 @@ class VDiffusionUNet(nn.Module):
 
         add_level(0, cfg.in_channels + cfg.timestep_features)
         self.blocks = nn.ModuleDict(blocks)
+        set_remat(self, cfg.remat)
 
     def _run(self, name, x, cond):
         x = self.blocks[name](x, cond)

@@ -19,11 +19,12 @@ checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
 `load_state_dict` takes converted weights (`convert.vnet_state_dict_from_jax`).
 
 Not ported (ROADMAP queue A): `export_sample`, `mesh`/`rules` and checkpoint
-discovery; JAX's `remat` has no counterpart.
+discovery.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -40,16 +41,18 @@ METHODS = ("ddim", "plms", "prk", "dpm++")
 
 
 class VelocityDiffusion:
-    def __init__(self, name: str = "yfcc_2", fp16: bool = True, device="cuda", seed: int = 0):
+    def __init__(self, name: str = "yfcc_2", fp16: bool = True, device="cuda", seed: int = 0,
+                 remat: bool = False):
         """`name` is a key of `configs.MODEL_CONFIGS` (yfcc_2, yfcc_1,
         cc12m_1_cfg (CLIP-conditioned), wikiart, tiny, tiny_conditioned);
         `fp16` stores matmul/conv weights in bf16 (bf16 compute); weights
         are random from `seed`; `device` is CUDA unless the caller passes
-        "cpu"."""
+        "cpu"; `remat` recomputes the UNet's conv blocks in the backward
+        pass."""
         if name not in configs.MODEL_CONFIGS:
             raise ValueError(f"unknown velocity diffusion model: {name}")
         self.name = name
-        self.config = configs.MODEL_CONFIGS[name]
+        self.config = dataclasses.replace(configs.MODEL_CONFIGS[name], remat=remat)
         self.device = resolve_device(device)
         self.seed = seed
         self.dtype = COMPUTE_DTYPE if fp16 else torch.float32

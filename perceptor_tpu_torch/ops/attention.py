@@ -8,12 +8,14 @@ Two paths over (batch, heads, seq, head_dim) tensors:
 
 `attention` routes long unmasked self-attention on a CUDA device to the
 kernels (the JAX rule of `flash_route`) and everything else to the
+dot-product path; under `model_flops_trace` every call takes the
 dot-product path. The context-parallel plans of the JAX package are not
 ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -47,19 +49,43 @@ def causal_mask(seq_len: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return mask[None, None]
 
 
-def flash_route(seq_q: int, seq_k: int, masked: bool, q: torch.Tensor) -> bool:
+# Model-FLOPs counting mode (JAX `model_flops_trace`): the counter of
+# utils/flops.py sees aten products only, not the kernels' ctypes launches,
+# so counting sends every attention to the dot-product path, whose q k^T
+# and p v products it counts at the true head_dim.
+_COUNTING_MODEL_FLOPS = False
+
+
+@contextlib.contextmanager
+def model_flops_trace():
+    """Route every attention, a forced one too, through
+    `dot_product_attention` inside the block."""
+    global _COUNTING_MODEL_FLOPS
+    prior = _COUNTING_MODEL_FLOPS
+    _COUNTING_MODEL_FLOPS = True
+    try:
+        yield
+    finally:
+        _COUNTING_MODEL_FLOPS = prior
+
+
+def flash_route(seq_q: int, seq_k: int, masked: bool = False,
+                q: Optional[torch.Tensor] = None) -> bool:
     """True when `attention` takes the flash kernels: unmasked, S_q == S_k
-    >= 1024 and a multiple of 128 (the JAX rule), for a tensor on a CUDA
-    device. The rule looks at no head_dim or dtype: `flash_attention` pads a
-    head_dim to a multiple of 8, and what the kernels still cannot run (a
-    head_dim above 512, fp16) raises there; nothing is sent to the
-    dot-product path on that account."""
+    >= 1024 and a multiple of 128 (the JAX rule), on a CUDA device: `q`'s,
+    or with no `q` whether CUDA is available. False under
+    `model_flops_trace`. The rule looks at no head_dim or dtype:
+    `flash_attention` pads a head_dim to a multiple of 8, and what the
+    kernels still cannot run (a head_dim above 512, fp16) raises there;
+    nothing is sent to the dot-product path on that account."""
+    on_cuda = torch.cuda.is_available() if q is None else q.is_cuda
     return (
-        not masked
+        not _COUNTING_MODEL_FLOPS
+        and not masked
         and seq_q >= 1024
         and seq_q == seq_k
         and seq_q % 128 == 0
-        and q.is_cuda
+        and on_cuda
     )
 
 
@@ -75,7 +101,7 @@ def attention(
     `flash_route`, True/False force the route."""
     if use_flash is None:
         use_flash = flash_route(q.shape[-2], k.shape[-2], mask is not None, q)
-    if use_flash:
+    if use_flash and not _COUNTING_MODEL_FLOPS:
         if mask is not None:
             raise ValueError("the flash kernels take no mask")
         return flash_attention(q, k, v, scale=scale)

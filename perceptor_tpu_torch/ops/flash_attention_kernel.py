@@ -120,20 +120,30 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(csrc: Path):
+    return sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path(csrc: Path = _CSRC) -> Path:
+    """Where `build_library` puts the library of these sources and flags:
+    build/libflash_attention_<hash of both>.so."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources(csrc):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    return _BUILD_DIR / f"libflash_attention_{digest.hexdigest()[:12]}.so"
+
+
 def build_library(csrc: Path = _CSRC) -> Path:
     """Compile every source under `csrc` (the package's csrc/ by default)
     for sm_90a (one nvcc per .cu file, all started together) and link them
     into one shared library in build/, once per version of the sources and
     flags; return its path. The compilers' reports (ptxas registers and
     spills per kernel) are kept beside it as `<library>.ptxas.txt`."""
-    files = sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in files:
-        digest.update(f.name.encode() + b"\0" + f.read_bytes())
-    tag = digest.hexdigest()[:12]
-    out = _BUILD_DIR / f"libflash_attention_{tag}.so"
+    files = _sources(csrc)
+    out = library_path(csrc)
     if out.exists():
         return out
+    tag = out.stem.removeprefix("libflash_attention_")
     nvcc = _nvcc()
     work = _BUILD_DIR / f"obj_{tag}_{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)

@@ -37,9 +37,10 @@ FIR_KERNELS["bicubic"] = FIR_KERNELS["cubic"]
 IntOrPair = Union[int, Sequence[int]]
 
 
-def setup_filter(f, normalize: bool = True, gain: float = 1.0) -> torch.Tensor:
+def setup_filter(f, normalize: bool = True, gain: float = 1.0, separable=None) -> torch.Tensor:
     """Scalar, 1-D (made 2-D by the outer product) or 2-D taps -> an fp32
-    2-D filter, normalized to unit sum, times `gain`."""
+    2-D filter, normalized to unit sum, times `gain`. `separable` is taken
+    and ignored, as in the JAX package: the filter is always 2-D."""
     f = np.asarray(f, dtype=np.float64)
     if f.ndim == 0:
         f = f[None]

@@ -42,13 +42,27 @@ def randn_like(reference: torch.Tensor, generator: Optional[torch.Generator]) ->
 
 
 def quantile_threshold(xs: torch.Tensor, quantile: float, minimum: float) -> torch.Tensor:
-    """Per-sample `quantile` of |xs| (linear interpolation, as jnp.quantile),
-    at least `minimum`, shaped (N, 1, 1, 1). Computed in fp32
-    (`torch.quantile` takes no bf16) and returned in the dtype that
-    `expand_like_batch` gives."""
+    """Per-sample `quantile` of |xs|, at least `minimum`, shaped (N, 1, 1, 1)
+    and returned in the dtype that `expand_like_batch` gives. The quantile
+    is jnp.quantile's linear interpolation, computed as JAX does it: in
+    fp32, between the order statistics at floor and ceil of
+    quantile * (n - 1) (`torch.kthvalue`), NaN for a row that holds one.
+    `torch.quantile` refuses rows of more than 2**24 elements; this takes
+    rows of any size."""
     flat = xs.reshape(xs.shape[0], -1).abs().float()
-    threshold = torch.clamp(torch.quantile(flat, quantile, dim=1), min=minimum)
-    return expand_like_batch(threshold, xs)
+    n = flat.shape[1]
+    position = torch.tensor(quantile, dtype=torch.float32) * (n - 1)
+    low, high = position.floor(), position.ceil()
+    high_weight = position - low
+
+    def order_statistic(rank):
+        return flat.kthvalue(int(rank.clamp(0, n - 1)) + 1, dim=1).values
+
+    low_value = order_statistic(low)
+    high_value = low_value if high == low else order_statistic(high)
+    values = low_value * (1 - high_weight) + high_value * high_weight
+    values = torch.where(flat.isnan().any(dim=1), torch.nan, values)
+    return expand_like_batch(torch.clamp(values, min=minimum), xs)
 
 
 class PredictionAlgebra:

@@ -6,12 +6,8 @@ percentile of |x| (floored at 1.0) with the gradient-preserving clamp,
 divides by the threshold and maps back. The threshold carries no gradient
 and is shaped (N, 1, 1, 1), one per item.
 
-`torch.quantile` interpolates linearly as `jnp.quantile` does by default
-and takes no bf16, so the threshold is computed in fp32. It refuses a row
-(the dimension it sorts, here one item's C x H x W) of more than 2**24
-elements; the batch size does not count. One item of 3 x 2048 x 2048 fits,
-and so does a batch of them (`scripts/quantile_limit_check.py`: torch
-2.11.0+cu128 on an H100 and 2.13.0 on the CPU alike).
+The threshold is `predictions.base.quantile_threshold`: jnp.quantile's
+linear interpolation in fp32, on rows of any size.
 """
 
 from __future__ import annotations

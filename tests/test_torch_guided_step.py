@@ -144,12 +144,12 @@ def test_tiny_guided_steps_stay_finite():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without jax,
-    flax, optax or perceptor_tpu; the entry points by name too, the lazily
-    exported ones resolved."""
+    """Every module of the port, chip_smoke.py and bench_cuda.py import
+    without jax, flax, optax or perceptor_tpu; the entry points by name too,
+    the lazily exported ones resolved."""
     code = (
         "import pkgutil, importlib, sys\n"
-        "import perceptor_tpu_torch, chip_smoke\n"
+        "import perceptor_tpu_torch, chip_smoke, bench_cuda\n"
         "import perceptor_tpu_torch.models.stable_diffusion.stable_diffusion\n"
         "import perceptor_tpu_torch.models.clip.tokenizer\n"
         "import perceptor_tpu_torch.engine.guidance\n"
@@ -174,7 +174,8 @@ def test_port_imports_no_jax():
         "             'losses.lpips', 'losses.style_transfer', 'losses.memorability',\n"
         "             'losses.transformers_openai_clip', 'losses.simulacra_aesthetic',\n"
         "             'losses.aesthetic_visual_assessment', 'models.adabins_depth',\n"
-        "             'models.midas_depth', 'losses.midas_depth'):\n"
+        "             'models.midas_depth', 'losses.midas_depth', 'utils.flops',\n"
+        "             'utils.profiling', 'utils.bench_env', 'core.remat'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"

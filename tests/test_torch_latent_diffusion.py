@@ -530,8 +530,7 @@ def test_configs_are_copies_of_the_jax_ones():
         (tbert.TINY_BERT, jbert.TINY_BERT),
     ]
     for port, jax_config in pairs:
-        want = {k: v for k, v in dataclasses.asdict(jax_config).items() if k != "remat"}
-        assert dataclasses.asdict(port) == want
+        assert dataclasses.asdict(port) == dataclasses.asdict(jax_config)
     assert (ttext2image.LINEAR_START, ttext2image.LINEAR_END, ttext2image.SCALE_FACTOR) == (
         jtext2image.LINEAR_START, jtext2image.LINEAR_END, jtext2image.SCALE_FACTOR)
     assert (tface.LINEAR_START, tface.LINEAR_END) == (jface.LINEAR_START, jface.LINEAR_END)
