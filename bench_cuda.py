@@ -18,6 +18,10 @@ trained weights). Every cell runs eager, batch 1 unless named, on one card:
   raw256_clip_opt100           Raw 256px under CLIP ViT-B/32, Adam 0.05, 100 steps
   velocity_yfcc2_256_guided50  engine.guided_sample over yfcc_2 at 256px, 50 steps
   raw512_cutouts32_opt100      Raw 512px, 32 cutouts of 224 under CLIP, 100 steps
+  adm256_pixelart_ensemble_guided50  engine.guided_sample over ADM "pixelart" at 256px
+                               under BLIP + CLOOB + SLIP, 50 steps
+  dip256_openclip_opt100       DeepImagePrior 256px under OpenCLIP ViT-B/32, Adam 0.01,
+                               100 steps
 
 Per cell: the model is built, one untimed warm-up repeat runs (it holds the
 cuDNN and cuBLAS set-up) and is checked (finite outputs of the expected
@@ -67,7 +71,7 @@ import time
 import traceback
 from typing import Any, Callable, Sequence
 
-from chip_smoke import PER_STEP, PER_VAE_CALL, PROMPT
+from chip_smoke import ENSEMBLE, PER_STEP, PER_VAE_CALL, PROMPT
 
 GUIDED_STEPS = 30
 TXT2IMG_STEPS = 20
@@ -77,6 +81,8 @@ MONSTER_BATCH = 16
 MONSTER_EVALUATIONS = 100
 OPTIMIZE_STEPS = 100
 ADAM_LR = 0.05
+DIP_ADAM_LR = 0.01
+ENSEMBLE_RHO = 3.0
 N_CUTOUTS = 32
 CUT_SIZE = 224
 CUT_POW = 0.5
@@ -176,11 +182,12 @@ def _clip_loss(spans, seed, tiny, device):
     return spans.wrap(loss, "clip")
 
 
-def _adam(spans):
-    """run_on_device's optimizer factory: Adam, lr 0.05 (optax.adam(0.05))."""
+def _adam(spans, lr=ADAM_LR):
+    """run_on_device's optimizer factory: Adam, lr 0.05 unless given
+    (optax.adam(lr))."""
     import torch
 
-    return lambda params: spans.shadow(torch.optim.Adam(params, lr=ADAM_LR), "step", "optimizer")
+    return lambda params: spans.shadow(torch.optim.Adam(params, lr=lr), "step", "optimizer")
 
 
 class _ByteTokenizer:
@@ -396,6 +403,68 @@ def bench_cutouts(seed=0, tiny=False, device="cuda") -> Cell:
                 (1, 3, size, size), "optimize", "run_on_device", spans)
 
 
+def bench_ensemble(seed=0, tiny=False, device="cuda") -> Cell:
+    """bench_families.bench_ensemble: `engine.guided_sample` over ADM
+    "pixelart" (fp16) at 256px under BLIP (384px), CLOOB and SLIP, each to a
+    random target, loss weights 1, 1, 1, guidance 0.5, clamp 1e-2, the
+    rho-3 schedule, 50 steps."""
+    from perceptor_tpu_torch import engine, losses
+    from perceptor_tpu_torch.models.guided_diffusion import GuidedDiffusion
+
+    spans = Spans()
+    model = GuidedDiffusion("tiny" if tiny else "pixelart", fp16=not tiny, device=device,
+                            seed=seed)
+    spans.shadow(model.module, "forward", "unet")
+    options = {"precision": "fp32"} if tiny else {}
+    # chip_smoke's ENSEMBLE, bench_families.bench_ensemble's towers in its
+    # order, each to its own random target (seeds 1, 2, 3 above --seed)
+    ensemble = [
+        spans.wrap(_random_encodings(
+            getattr(losses, kind)("tiny" if tiny else name, device=device, seed=seed, **options),
+            device, seed + k), "clip")
+        for k, (kind, name) in enumerate(ENSEMBLE, start=1)
+    ]
+    size = model.shape[-1]
+    n_steps = 2 if tiny else SAMPLE_STEPS
+    diffused = model.random_diffused((1, 3, size, size), _generator(device, seed))
+    pairs = model.schedule_indices(n_steps, rho=ENSEMBLE_RHO)
+
+    def run():
+        return engine.guided_sample(model, ensemble, diffused, pairs,
+                                    guidance_scale=GUIDANCE_SCALE, loss_weights=[1.0, 1.0, 1.0],
+                                    clamp_value=CLAMP_VALUE)
+
+    return Cell("ADM pixelart + BLIP/CLOOB/SLIP ensemble guidance, 256px, 50 steps", n_steps, run,
+                (1, 3, size, size), "ensemble_guided_sample", "guided_sample", spans)
+
+
+def bench_dip(seed=0, tiny=False, device="cuda") -> Cell:
+    """bench_families.bench_dip: a 256px DeepImagePrior drawer (192-channel
+    skip levels, bf16 convs) under OpenCLIP ViT-B/32 (laion2b_s34b_b79k)
+    with a random target, Adam 0.01, 100 steps through
+    `engine.run_on_device`."""
+    from perceptor_tpu_torch import drawers, engine, losses
+    from perceptor_tpu_torch.guided_step import TINY_CLIP
+
+    spans = Spans()
+    size = 16 if tiny else 256
+    drawer = drawers.DeepImagePrior((size, size), seed=seed, fp16=not tiny, device=device)
+    spans.shadow(drawer, "synthesize", "drawer")
+    options = {"config": TINY_CLIP, "precision": "fp32"} if tiny else {}
+    loss = losses.OpenCLIP("ViT-B-32", "laion2b_s34b_b79k", device=device, seed=seed, **options)
+    objective = spans.wrap(_random_encodings(loss, device, seed + 1), "clip")
+    optimizer = _adam(spans, DIP_ADAM_LR)
+    n_steps = 1 if tiny else OPTIMIZE_STEPS
+
+    def run():
+        final, history = engine.run_on_device(drawer, [objective], drawer.params, n_steps,
+                                              optimizer=optimizer)
+        return (final[-1], history, *final[:-1])  # the residual images first
+
+    return Cell("DeepImagePrior 256px + OpenCLIP ViT-B/32 guided optimization", n_steps, run,
+                (1, 3, size, size), "dip_optimize", "run_on_device", spans)
+
+
 CELLS = {
     "sd512_guided_step": bench_guided_step,
     "sd512_txt2img_cfg7_ddim20": bench_txt2img,
@@ -406,6 +475,8 @@ CELLS = {
     "raw256_clip_opt100": bench_raw,
     "velocity_yfcc2_256_guided50": bench_velocity_guided,
     "raw512_cutouts32_opt100": bench_cutouts,
+    "adm256_pixelart_ensemble_guided50": bench_ensemble,
+    "dip256_openclip_opt100": bench_dip,
 }
 
 

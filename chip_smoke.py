@@ -170,7 +170,27 @@ exits non-zero without a result line:
                   `losses.MidasDepth("dpt_hybrid")` to the init image's
                   depth: 21 / 21 / 21 launches a step, finite latents and
                   losses; run twice, the two loss histories bitwise equal;
-30. timings       each kernel, its plain version and PyTorch's
+30. ensemble_guided_sample  `engine.guided_sample` over
+                  `GuidedDiffusion("pixelart")` at 256px under BLIP
+                  (model_base_retrieval_flickr, 384px), CLOOB (16-epochs) and
+                  SLIP (ViT-B/16) at full width, each to its own random
+                  target, 5 steps of the rho-3 schedule: no flash launch,
+                  finite images and losses, ms a step, a profiled step, peak
+                  memory; each tower's bf16 encodings within 5e-2 of an fp32
+                  build of its weights;
+31. clip_variants `LiT("LiT-L16L")` and `RuCLIP("ruclip-vit-large-patch14-336")`:
+                  each image tower forward and backward, each text tower
+                  forward (a synthetic vocabulary; a stand-in tokenizer of
+                  fixed ids), bf16 against fp32, no flash launch;
+32. dip_optimize  20 Adam steps (lr 0.01) of `run_on_device` over a 256px
+                  `drawers.DeepImagePrior` (192-channel skip levels) under
+                  OpenCLIP ViT-B/32 to a random target: the loss falls, no
+                  flash launch, a profiled step; `dip_optimize_deform`, 3 steps
+                  of the same net with deformable convs (`offset_type="full"`,
+                  offsets at lr / 10), and `ops.deform_conv2d` with zero
+                  offsets against `F.conv2d` at a 192-channel 256 x 256 layer
+                  in fp32 and bf16; each phase's seconds;
+33. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
                   backward where it takes the head_dim (d <= 256), beside
@@ -289,6 +309,18 @@ PER_STEP = {
     "depth_models": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "depth_optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "depth_guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
+    # the CLIP-family ensemble over ADM "pixelart" at 256px, per guided step:
+    # the UNet attends at ds 16 (16 x 16 = 256 tokens), BLIP's ViT at 384px
+    # over 577 tokens, CLOOB's and SLIP's at 224px over 197, their text
+    # towers masked
+    "ensemble_guided_sample": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # deep image prior at 256px, per optimizer step: convolutions only, and
+    # OpenCLIP ViT-B/32's 50 tokens
+    "dip_optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "dip_optimize_deform": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # LiT-L16L (197 image tokens, a masked 16-token BERT) and ruCLIP L/14 at
+    # 336px (577 image tokens, a causal text tower), per forward + backward
+    "clip_variants": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -419,6 +451,25 @@ GUIDED_TEXT_STEPS = 4
 GUIDED_TEXT_CUTOUTS = 16
 # bf16 towers against an fp32 copy of the same weights, relative L2
 TEXT_BF16_RTOL = 5e-2
+# the CLIP-family ensemble over ADM "pixelart" (bench_families.py config 5)
+ENSEMBLE_ADM = "pixelart"
+ENSEMBLE = (("BLIP", "model_base_retrieval_flickr"), ("CLOOB", "16-epochs"),
+            ("SLIP", "SLIP_VITB16"))
+ENSEMBLE_SIZE = 256
+ENSEMBLE_STEPS = 5
+# deep image prior (config 2): 256px, 192-channel skip levels, Adam 0.01
+DIP_SIZE = 256
+DIP_STEPS = 20
+DIP_DEFORM_STEPS = 3
+DIP_LR = 0.01
+# deform_conv2d with zero offsets against F.conv2d at a DIP layer's shape:
+# fp32 sums in another order; bf16 inputs, each result rounded to bf16 once
+DEFORM_SHAPE = (1, 192, DIP_SIZE, DIP_SIZE)
+DEFORM_FP32_RTOL = 1e-4
+DEFORM_BF16_RTOL = 8e-3
+# LiT and ruCLIP at published widths
+LIT_NAME = "LiT-L16L"
+RUCLIP_NAME = "ruclip-vit-large-patch14-336"
 # `optimize` and `run_on_device` do the same arithmetic in the same order
 RUN_ON_DEVICE_ATOL = 1e-6
 # the JPEG decode on the card against the CPU's, same coefficients, fp32
@@ -2532,6 +2583,272 @@ def phase_depth_guided_sample(fa):
     return launches, measured
 
 
+def random_target(loss, seed):
+    """A prompt-bank target without a vocabulary: a fixed random direction of
+    the tower's width (bench_families.py's `_random_encodings`)."""
+    import torch
+
+    dim = loss.model.config.embed_dim
+    return loss.add_encodings_(torch.randn((1, dim), device="cuda",
+                                           generator=torch.Generator("cuda").manual_seed(seed)))
+
+
+def check_bf16_encoder(model, label, seed) -> float:
+    """`model`'s bf16 image tower against an fp32 build of the same weights
+    (`precision="fp32"`, the bf16 state_dict in fp32) on two random images
+    at its native size: relative L2 of the encodings, at most
+    TEXT_BF16_RTOL, finite."""
+    import torch
+
+    size = model.image_size if isinstance(model.image_size, tuple) else (model.image_size,) * 2
+    images = torch.rand((2, 3, *size), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    fp32 = type(model)(model.name, precision="fp32")
+    fp32.load_state_dict({k: v.float() for k, v in model.module.state_dict().items()})
+    with torch.no_grad():
+        encodings, reference = model.encode_images(images), fp32.encode_images(images)
+    err = _rel_l2(encodings, reference)
+    if not (torch.isfinite(encodings).all() and err <= TEXT_BF16_RTOL):
+        raise AssertionError(f"{label}: bf16 vs fp32 relative L2 {err}")
+    del fp32
+    return err
+
+
+def phase_ensemble_guided_sample(fa):
+    """`engine.guided_sample` over `GuidedDiffusion(ENSEMBLE_ADM)` (fp16) at
+    256px under BLIP (384px), CLOOB and SLIP at full width, each to its own
+    random target (seeds 1, 2, 3), loss weights 1, 1, 1, guidance 0.5, clamp
+    1e-2, ENSEMBLE_STEPS steps of the rho-3 schedule: finite images and
+    losses of the expected shape, no flash launch; ms a step, a profiled
+    step (device ms, busy share), peak memory; each tower's bf16 encodings
+    within TEXT_BF16_RTOL of an fp32 build of its weights. Returns
+    (launches, launches per step)."""
+    import torch
+
+    from perceptor_tpu_torch import losses
+    from perceptor_tpu_torch.engine import guided_sample
+    from perceptor_tpu_torch.models.guided_diffusion import GuidedDiffusion
+
+    t0 = time.perf_counter()
+    model = GuidedDiffusion(ENSEMBLE_ADM, fp16=True, device="cuda", seed=0)
+    ensemble = [random_target(getattr(losses, kind)(name), seed)
+                for seed, (kind, name) in enumerate(ENSEMBLE, start=1)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    towers = {f"{kind}_{name}": check_bf16_encoder(loss.model, f"ensemble {kind}", seed=31)
+              for (kind, name), loss in zip(ENSEMBLE, ensemble)}
+    diffused = model.random_diffused((1, 3, ENSEMBLE_SIZE, ENSEMBLE_SIZE),
+                                     torch.Generator("cuda").manual_seed(0))
+    pairs = model.schedule_indices(ENSEMBLE_STEPS, rho=3.0)
+    options = dict(guidance_scale=0.5, loss_weights=[1.0, 1.0, 1.0], clamp_value=1e-2)
+    guided_sample(model, ensemble, diffused, pairs[:1], **options)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out, history = guided_sample(model, ensemble, diffused, pairs, **options)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, len(pairs))
+    check_per_step("ensemble_guided_sample", measured)
+    if tuple(out.shape) != (1, 3, ENSEMBLE_SIZE, ENSEMBLE_SIZE) or not (
+            torch.isfinite(out).all() and torch.isfinite(history).all()):
+        raise AssertionError(f"ensemble_guided_sample: output {tuple(out.shape)} or history "
+                             f"{history.tolist()} not finite")
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_summary(lambda: guided_sample(model, ensemble, diffused, pairs[:1],
+                                                    **options))
+    emit({
+        "phase": "ensemble_guided_sample", "ok": True, "model": ENSEMBLE_ADM,
+        "objectives": [f"{kind}_{name}" for kind, name in ENSEMBLE], "steps": len(pairs),
+        "pairs": pairs.tolist(), "losses": history.tolist(), "images_shape": list(out.shape),
+        "ms_per_step": start.elapsed_time(end) / len(pairs), "wall_s": wall,
+        "peak_mem_bytes": peak, "profile": profile, "bf16_vs_fp32_rel_l2": towers,
+        "tol": TEXT_BF16_RTOL, "launches": launches, "launches_per_step": measured,
+        "build_s": build_s,
+    })
+    return launches, measured
+
+
+def dip_run(fa, path, drawer, loss, steps, optimizer) -> dict:
+    """`engine.run_on_device` over `drawer` under `loss` for `steps` steps:
+    finite history and weights, launches a step held to PER_STEP[path];
+    ms a step (CUDA events around the run), peak memory."""
+    import torch
+
+    from perceptor_tpu_torch import engine
+
+    engine.run_on_device(drawer, [loss], drawer.params, 1, optimizer=optimizer)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    final, history = engine.run_on_device(drawer, [loss], drawer.params, steps,
+                                          optimizer=optimizer)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, steps)
+    check_per_step(path, measured)
+    history = history.tolist()
+    if not (all(math.isfinite(h) for h in history)
+            and all(bool(torch.isfinite(p).all()) for p in final)):
+        raise AssertionError(f"{path}: non-finite history or weights: {history}")
+    return {"steps": steps, "history": history, "ms_per_step": start.elapsed_time(end) / steps,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+            "launches_per_step": measured}
+
+
+def check_deform_conv() -> dict:
+    """`ops.deform_conv2d` with zero offsets against `F.conv2d` at a DIP 3x3
+    layer's shape (192 channels, 256 x 256 out, reflection-padded input,
+    4 offset groups), fp32 and bf16: max error over max magnitude within
+    DEFORM_FP32_RTOL / DEFORM_BF16_RTOL; the ms of each (forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from perceptor_tpu_torch.ops import deform_conv2d
+
+    generator = torch.Generator("cuda").manual_seed(41)
+    b, c, h, w = DEFORM_SHAPE
+    x = F.pad(torch.randn(DEFORM_SHAPE, device="cuda", generator=generator), (1,) * 4,
+              mode="reflect")
+    weight = torch.randn((c, c, 3, 3), device="cuda", generator=generator) / math.sqrt(c * 9)
+    bias = 0.1 * torch.randn((c,), device="cuda", generator=generator)
+    offsets = torch.zeros((b, 2 * 4 * 9, h, w), device="cuda")
+    record = {}
+    for dtype, rtol in ((torch.float32, DEFORM_FP32_RTOL), (torch.bfloat16, DEFORM_BF16_RTOL)):
+        xd, wd = x.to(dtype), weight.to(dtype)
+        with torch.no_grad():
+            got = deform_conv2d(xd, offsets.to(dtype), wd, bias)
+            # fp32 sums of the same (rounded) inputs
+            want = F.conv2d(xd.float(), wd.float(), bias)
+        err = float((got.float() - want).abs().max() / want.abs().max())
+        if not (got.dtype == dtype and err <= rtol):
+            raise AssertionError(f"deform_conv2d {dtype}: error {err} over {rtol}")
+        with torch.no_grad():
+            ms = time_ms(lambda: deform_conv2d(xd, offsets.to(dtype), wd, bias), reps=5)
+            conv_ms = time_ms(lambda: F.conv2d(xd, wd, bias.to(dtype)), reps=5)
+        record[str(dtype).removeprefix("torch.")] = {"max_err_over_max": err, "tol": rtol,
+                                                     "ms": ms, "conv2d_ms": conv_ms}
+    return record
+
+
+def phase_dip_optimize(fa):
+    """DIP_STEPS steps of `run_on_device` over `drawers.DeepImagePrior` at
+    DIP_SIZE (192-channel skip levels, bf16 convs) under
+    `losses.OpenCLIP("ViT-B-32", "laion2b_s34b_b79k")` to a random target,
+    Adam DIP_LR: the loss falls, no flash launch, a profiled step; then the
+    same net with `offset_type="full"` (deformable 3x3 convs, offsets at
+    lr / 10) for DIP_DEFORM_STEPS steps (`dip_optimize_deform`); and
+    `deform_conv2d` against `F.conv2d` (`check_deform_conv`). Returns
+    ({path: launches}, {path: launches per step})."""
+    import torch
+
+    from perceptor_tpu_torch import drawers, engine, losses
+
+    t0 = time.perf_counter()
+    loss = random_target(losses.OpenCLIP("ViT-B-32", "laion2b_s34b_b79k"), seed=1)
+    drawer = drawers.DeepImagePrior((DIP_SIZE, DIP_SIZE), seed=0)
+    build_s = time.perf_counter() - t0
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=DIP_LR)
+
+    t0 = time.perf_counter()
+    record = dip_run(fa, "dip_optimize", drawer, loss, DIP_STEPS, adam)
+    if not record["history"][-1] < record["history"][0]:
+        raise AssertionError(f"dip_optimize: loss did not fall: {record['history']}")
+    record["profile"] = profile_summary(engine.make_guidance_step(drawer, [loss], adam))
+    record["seconds"] = time.perf_counter() - t0
+    emit({"phase": "dip_optimize", "ok": True, "image_size": DIP_SIZE, "lr": DIP_LR,
+          "parameters": sum(p.numel() for p in drawer.parameters()), "build_s": build_s,
+          **record})
+    del drawer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    deform = drawers.DeepImagePrior((DIP_SIZE, DIP_SIZE), seed=0, offset_type="full")
+    deform_record = dip_run(fa, "dip_optimize_deform", deform, loss, DIP_DEFORM_STEPS,
+                            deform.optimizer(DIP_LR))
+    deform_record["deform_conv2d_vs_conv2d"] = check_deform_conv()
+    deform_record["seconds"] = time.perf_counter() - t0
+    emit({"phase": "dip_optimize_deform", "ok": True, "image_size": DIP_SIZE,
+          "offset_type": "full", "lr": DIP_LR, "offset_lr": DIP_LR * 0.1, **deform_record})
+    return ({"dip_optimize": record["launches"], "dip_optimize_deform": deform_record["launches"]},
+            {"dip_optimize": record["launches_per_step"],
+             "dip_optimize_deform": deform_record["launches_per_step"]})
+
+
+def _ruclip_tokenizer(texts):
+    """A stand-in for youtokentome's BPE: fixed ids (bos 2, eos 3, pad 0)."""
+    import numpy as np
+
+    rows = np.zeros((len(texts), 77), dtype=np.int64)
+    rows[:, :6] = [2, 310, 4077, 1580, 925, 3]
+    return rows
+
+
+def phase_clip_variants(fa):
+    """`LiT(LIT_NAME)` and `RuCLIP(RUCLIP_NAME)` at published widths: each
+    image tower forward and backward on a random image at its native size (a
+    finite, nonzero input gradient), each text tower forward on the prompt
+    (LiT through the synthetic vocabulary, ruCLIP through a stand-in
+    tokenizer of fixed ids), unit-norm finite encodings, the bf16 image
+    encodings within TEXT_BF16_RTOL of an fp32 build; no flash launch.
+    Returns (launches, launches per forward + backward)."""
+    import torch
+
+    from perceptor_tpu_torch import models
+    from perceptor_tpu_torch.models.latent_diffusion import BERTTokenizer
+
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    towers = {}
+    for label, model in (
+            (LIT_NAME, lambda: models.LiT(LIT_NAME, tokenizer=BERTTokenizer(BERT_VOCAB, 16))),
+            (RUCLIP_NAME, lambda: models.RuCLIP(RUCLIP_NAME, tokenizer=_ruclip_tokenizer))):
+        model = model()
+        size = model.image_size if isinstance(model.image_size, tuple) else (model.image_size,) * 2
+        images = torch.rand((1, 3, *size), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(51)).requires_grad_(True)
+        # a random probe: LiT's encodings are a LayerNorm's, whose features
+        # sum to 0, so their plain sum has no gradient
+        probe = torch.randn((1, model.config.embed_dim), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(52))
+        encodings = model.encode_images(images)
+        (grad,) = torch.autograd.grad((encodings * probe).sum(), images)
+        texts = model.encode_texts([PROMPT])
+        norms = torch.linalg.norm(torch.cat([encodings.detach(), texts]), dim=-1)
+        if not (torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+                and torch.allclose(norms, torch.ones_like(norms), atol=1e-3)):
+            raise AssertionError(f"clip_variants {label}: gradient or encodings off: {norms}")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        (grad,) = torch.autograd.grad((model.encode_images(images) * probe).sum(), images)
+        end.record()
+        torch.cuda.synchronize()
+        towers[label] = {
+            "image_size": list(size), "parameters": sum(p.numel() for p in model.module.parameters()),
+            "image_fwd_bwd_ms": start.elapsed_time(end),
+            "bf16_vs_fp32_rel_l2": check_bf16_encoder(model, f"clip_variants {label}", seed=53),
+            "tol": TEXT_BF16_RTOL, "text_shape": list(texts.shape)}
+        del model
+        torch.cuda.empty_cache()
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, len(towers))
+    check_per_step("clip_variants", measured)
+    emit({"phase": "clip_variants", "ok": True, "towers": towers, "prompt": PROMPT,
+          "seconds": time.perf_counter() - t0})
+    return launches, measured
+
+
 def phase_timings(fa, peak_flops, peak_bw) -> list:
     """Kernel, plain version, SDPA and the fused flash backward per site,
     and the bound."""
@@ -2771,10 +3088,20 @@ def main() -> int:
     for phase in (phase_ldm_text2image, phase_ldm_face, phase_ldm_super_resolution,
                   phase_monster_sample, phase_clip_resnet, phase_perceptual_losses,
                   phase_perceptual_optimize, phase_aesthetic_guided_sample, phase_depth_models,
-                  phase_depth_optimize, phase_depth_guided_sample):
+                  phase_depth_optimize, phase_depth_guided_sample, phase_ensemble_guided_sample,
+                  phase_clip_variants):
         path = phase.__name__.removeprefix("phase_")
+        t0 = time.perf_counter()
         launches[path], measured[path] = phase(fa)
+        if path in ("ensemble_guided_sample", "clip_variants"):
+            emit({"phase": f"{path}_seconds", "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dip_launches, dip_measured = phase_dip_optimize(fa)
+    launches.update(dip_launches)
+    measured.update(dip_measured)
+    emit({"phase": "dip_optimize_seconds", "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, measured, errors)}))

@@ -9,7 +9,9 @@ perceptor_tpu/models/velocity_diffusion/convert.py,
 perceptor_tpu/models/monster_diffusion/convert.py,
 perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py,
 perceptor_tpu/models/vgg.py, lpips.py, resnet.py, resmem.py,
-adabins_depth.py and midas_depth.py):
+adabins_depth.py, midas_depth.py, slip.py, blip.py, cloob.py, lit.py and
+ruclip.py; the deep image prior has no JAX converter, its names are
+flax's):
 
     conv   (kh, kw, I, O) -> (O, I, kh, kw)
     dense  (I, O)         -> (O, I)      (ADM's 1x1 conv1d: (O, I, 1))
@@ -20,12 +22,14 @@ open_clip's (CLIP, both image towers), OpenAI guided_diffusion's (ADM;
 CompVis's for its spatial transformers), k-diffusion's (MonsterDiffusion)
 x-transformer's (BERT), torchvision's (the VGG, AlexNet, SqueezeNet and
 ResNet trunks), lpips' (its heads), ResMem's, gen-efficientnet's, the
-AdaBins repository's and MiDaS's (timm's ViT inside), so the JAX package's
+AdaBins repository's, MiDaS's (timm's ViT inside), SLIP's, BLIP's (timm
+and HF-BERT), cloob-training's and LiT's, so the JAX package's
 own `unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the three
 `from_torch`, `convert_bert`, `convert_torchvision_features`,
 `convert_resnet`, `convert_resmem`, `convert_efficientnet`,
-`convert_adabins`, `convert_dpt`, `convert_midas_net` and
-`convert_midas_net_small` map these state_dicts back to the same trees.
+`convert_adabins`, `convert_dpt`, `convert_midas_net`,
+`convert_midas_net_small`, `convert_slip`, `convert_blip`, `convert_cloob`
+and `convert_lit` map these state_dicts back to the same trees.
 
 One map is torch to torch: `open_clip_state_dict_from_hf` takes an HF
 `transformers` CLIPModel state_dict to the port's open_clip names.
@@ -40,11 +44,15 @@ import numpy as np
 import torch
 
 from perceptor_tpu_torch.models.adabins_depth import AdaBinsConfig, EfficientNetConfig
+from perceptor_tpu_torch.models.blip import BLIPConfig
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
+from perceptor_tpu_torch.models.cloob import CLOOBConfig
 from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
 from perceptor_tpu_torch.models.latent_diffusion.bert import BERTConfig
+from perceptor_tpu_torch.models.lit import LiTConfig
 from perceptor_tpu_torch.models.midas_depth import DPTConfig, MidasNetConfig, MidasNetSmallConfig
 from perceptor_tpu_torch.models.monster_diffusion.net import MonsterConfig
+from perceptor_tpu_torch.models.slip import SLIPConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
 from perceptor_tpu_torch.models.vgg import VGG16_CFG, VGG19_CFG
@@ -272,17 +280,21 @@ def clip_visual_state_dict_from_jax(visual: Mapping, cfg: CLIPConfig) -> StateDi
     return sd
 
 
+def _clip_text(text: Mapping, layers: int, sd: StateDict) -> None:
+    """Flax CLIP `TextTransformer` params -> open_clip's top-level names."""
+    sd["token_embedding.weight"] = _t(text["token_embedding"])
+    sd["positional_embedding"] = _t(text["positional_embedding"])
+    sd["text_projection"] = _t(text["text_projection"])
+    _norm(text["ln_final"], "ln_final", sd)
+    _transformer(text["transformer"], "transformer", layers, sd)
+
+
 def clip_state_dict_from_jax(params: Mapping, cfg: CLIPConfig) -> StateDict:
     """Flax `CLIP` params ({"visual", "text", "logit_scale"}) -> the port's
     open_clip-named state_dict: `visual.*`, the text tower at the top level
     and `logit_scale`."""
     sd = clip_visual_state_dict_from_jax(params["visual"], cfg)
-    text = params["text"]
-    sd["token_embedding.weight"] = _t(text["token_embedding"])
-    sd["positional_embedding"] = _t(text["positional_embedding"])
-    sd["text_projection"] = _t(text["text_projection"])
-    _norm(text["ln_final"], "ln_final", sd)
-    _transformer(text["transformer"], "transformer", cfg.text_layers, sd)
+    _clip_text(params["text"], cfg.text_layers, sd)
     sd["logit_scale"] = _t(params["logit_scale"])
     return sd
 
@@ -705,6 +717,18 @@ def _midas_scratch(params: Mapping, rn: str, head: str, sd: StateDict) -> None:
         _conv(params[head.format(k)], f"scratch.output_conv.{index}", sd)
 
 
+def _timm_blocks(p: Mapping, prefix: str, layers: int, sd: StateDict) -> None:
+    """Flax timm-ViT blocks (`norm1_{i}`, `qkv_{i}`, ...) -> timm's
+    `{prefix}.blocks.{i}.*`."""
+    for i in range(layers):
+        dst = f"{prefix}.blocks.{i}"
+        for src, name in (("norm1", "norm1"), ("norm2", "norm2")):
+            _norm(p[f"{src}_{i}"], f"{dst}.{name}", sd)
+        for src, name in (("qkv", "attn.qkv"), ("attn_proj", "attn.proj"), ("fc1", "mlp.fc1"),
+                          ("fc2", "mlp.fc2")):
+            _linear(p[f"{src}_{i}"], f"{dst}.{name}", sd)
+
+
 def dpt_state_dict_from_jax(params: Mapping, cfg: DPTConfig) -> StateDict:
     """Flax `DPTDepthModel` params (plain or hybrid) -> the MiDaS DPT names
     (`pretrained.model.*` timm's, `pretrained.act_postprocess{k}.{0,3,4}`,
@@ -729,13 +753,7 @@ def dpt_state_dict_from_jax(params: Mapping, cfg: DPTConfig) -> StateDict:
                 if "downsample_conv" in block:
                     _conv(block["downsample_conv"], f"{dst}.downsample.conv", sd)
                     _norm(block["downsample_norm"], f"{dst}.downsample.norm", sd)
-    for i in range(cfg.vit_layers):
-        dst = f"{m}.blocks.{i}"
-        for src, name in (("norm1", "norm1"), ("norm2", "norm2")):
-            _norm(backbone[f"{src}_{i}"], f"{dst}.{name}", sd)
-        for src, name in (("qkv", "attn.qkv"), ("attn_proj", "attn.proj"), ("fc1", "mlp.fc1"),
-                          ("fc2", "mlp.fc2")):
-            _linear(backbone[f"{src}_{i}"], f"{dst}.{name}", sd)
+    _timm_blocks(backbone, m, cfg.vit_layers, sd)
     for idx in range(4):
         if f"readout_{idx}" not in params:  # the hybrid's identity act_postprocess1 / 2
             continue
@@ -790,4 +808,124 @@ def midas_net_small_state_dict_from_jax(params: Mapping, cfg: MidasNetSmallConfi
         old, new = next((old, new) for old, new in _LITE_REGROUP if key.startswith(old))
         sd[new + key[len(old):]] = value
     _midas_scratch(params, "layer{1}_rn", "out_conv{}", sd)
+    return sd
+
+
+# -- the CLIP family (SLIP, BLIP, CLOOB, LiT, RuCLIP) and deep image prior --
+
+
+def _timm_vit(visual: Mapping, prefix: str, layers: int, sd: StateDict) -> None:
+    """Flax `TimmViT` params -> timm's names under `prefix`."""
+    _conv(visual["patch_embed"], f"{prefix}.patch_embed.proj", sd)
+    sd[f"{prefix}.cls_token"] = _t(visual["cls_token"])
+    sd[f"{prefix}.pos_embed"] = _t(visual["pos_embed"])
+    _norm(visual["norm"], f"{prefix}.norm", sd)
+    _timm_blocks(visual, prefix, layers, sd)
+
+
+def _bert(text: Mapping, prefix: str, layers: int, sd: StateDict) -> None:
+    """Flax `BertTextEncoder` params -> HF-BERT's names under `prefix`."""
+    sd[f"{prefix}.embeddings.word_embeddings.weight"] = _t(text["word_embeddings"])
+    sd[f"{prefix}.embeddings.position_embeddings.weight"] = _t(text["position_embeddings"])
+    _norm(text["embeddings_norm"], f"{prefix}.embeddings.LayerNorm", sd)
+    for i in range(layers):
+        layer = f"{prefix}.encoder.layer.{i}"
+        for src, name in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                          ("v", "attention.self.value"), ("attn_out", "attention.output.dense"),
+                          ("ff_in", "intermediate.dense"), ("ff_out", "output.dense")):
+            _linear(text[f"{src}_{i}"], f"{layer}.{name}", sd)
+        _norm(text[f"attn_norm_{i}"], f"{layer}.attention.output.LayerNorm", sd)
+        _norm(text[f"ff_norm_{i}"], f"{layer}.output.LayerNorm", sd)
+
+
+def slip_state_dict_from_jax(params: Mapping, cfg: SLIPConfig) -> StateDict:
+    """The JAX `SLIP` wrapper's params ({visual, image_projection, text}) ->
+    `models/slip.py SLIPModule`'s names; the inverse of `convert_slip`."""
+    sd: StateDict = {"image_projection": _t(params["image_projection"])}
+    _timm_vit(params["visual"], "visual", cfg.vision_layers, sd)
+    _clip_text(params["text"], cfg.text_layers, sd)
+    return sd
+
+
+def blip_state_dict_from_jax(params: Mapping, cfg: BLIPConfig) -> StateDict:
+    """The JAX `BLIP` wrapper's params ({visual, text, vision_proj,
+    text_proj}) -> `models/blip.py BLIPModule`'s names; the inverse of
+    `convert_blip`."""
+    sd: StateDict = {}
+    _timm_vit(params["visual"], "visual_encoder", cfg.vision_layers, sd)
+    _bert(params["text"], "text_encoder", cfg.text_layers, sd)
+    _linear(params["vision_proj"], "vision_proj", sd)
+    _linear(params["text_proj"], "text_proj", sd)
+    return sd
+
+
+def _cloob_layers(tower: Mapping, prefix: str, layers: int, sd: StateDict) -> None:
+    for i in range(layers):
+        p, dst = tower[f"layer_{i}"], f"{prefix}.layers.{i}"
+        _norm(p["attn_norm"], f"{dst}.attn.norm", sd)
+        for name in ("query", "key", "value", "out"):
+            _linear(p[name], f"{dst}.attn.{name}", sd)
+        _norm(p["ff_norm"], f"{dst}.ff.norm", sd)
+        _linear(p["linear_0"], f"{dst}.ff.linear_0", sd)
+        _linear(p["linear_1"], f"{dst}.ff.linear_1", sd)
+
+
+def cloob_state_dict_from_jax(params: Mapping, cfg: CLOOBConfig) -> StateDict:
+    """The JAX `CLOOB` wrapper's params ({image, text}) -> cloob-training's
+    model_pt names (`models/cloob.py CLOOBModule`); the inverse of
+    `convert_cloob`."""
+    image, text = params["image"], params["text"]
+    sd: StateDict = {}
+    _conv(image["embed"], "image_encoder.embed", sd)
+    sd["image_encoder.class_embed"] = _t(image["class_embed"])
+    sd["image_encoder.pos_embed.weight"] = _t(image["pos_embed"])
+    _linear(image["proj"], "image_encoder.proj", sd)
+    _cloob_layers(image, "image_encoder", cfg.vision_layers, sd)
+    sd["text_encoder.embed.weight"] = _t(text["embed"])
+    sd["text_encoder.pos_embed.weight"] = _t(text["pos_embed"])
+    _linear(text["proj"], "text_encoder.proj", sd)
+    _cloob_layers(text, "text_encoder", cfg.text_layers, sd)
+    return sd
+
+
+def lit_state_dict_from_jax(params: Mapping, cfg: LiTConfig) -> StateDict:
+    """The JAX `LiT` wrapper's params ({visual, text, text_head}) ->
+    `models/lit.py LiTModule`'s names; the inverse of `convert_lit` (which
+    folds a checkpoint's token-type embeddings into the word embeddings)."""
+    sd: StateDict = {}
+    _timm_vit(params["visual"], "image_tower", cfg.vision_layers, sd)
+    _bert(params["text"], "text_tower", cfg.text_layers, sd)
+    _linear(params["text_head"], "text_head", sd)
+    return sd
+
+
+# JAX's RuCLIP keeps no logit_scale (its encodings never read it); CLIP's
+# initial value stands in
+_LOGIT_SCALE_INIT = float(np.log(1 / 0.07))
+
+
+def ruclip_state_dict_from_jax(params: Mapping, cfg: CLIPConfig) -> StateDict:
+    """The JAX `RuCLIP` wrapper's params ({visual, text}) -> open_clip's
+    names (`models/ruclip.py RuCLIPModule`); `from_openclip` maps them
+    back."""
+    sd = clip_visual_state_dict_from_jax(params["visual"], cfg)
+    _clip_text(params["text"], cfg.text_layers, sd)
+    sd["logit_scale"] = _t(params.get("logit_scale", _LOGIT_SCALE_INIT))
+    return sd
+
+
+def deep_image_prior_state_dict_from_jax(params: Mapping, prefix: str = "") -> StateDict:
+    """A flax `SkipNet` param tree -> `models/deep_image_prior.py SkipNet`'s
+    names, which are flax's: a conv's or deformable conv's `kernel` (HWIO)
+    becomes its OIHW `weight`, a BatchNorm's `scale` its `weight`, nested
+    `offset_conv` trees a submodule. `prefix` is put before every name (the
+    drawer's `model.module.`)."""
+    sd: StateDict = {}
+    for name, value in params.items():
+        if isinstance(value, Mapping):
+            sd.update(deep_image_prior_state_dict_from_jax(value, f"{prefix}{name}."))
+        elif name == "kernel":
+            sd[f"{prefix}weight"] = _t(np.asarray(value).transpose(3, 2, 0, 1))
+        else:
+            sd[f"{prefix}{'weight' if name == 'scale' else name}"] = _t(value)
     return sd

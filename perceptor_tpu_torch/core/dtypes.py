@@ -5,6 +5,9 @@ biases and scalars stay fp32. Every matmul/conv layer of the port computes
 in its weight's dtype (`ops/layers.py`), so bf16 weight storage IS the bf16
 compute policy: activations enter each layer cast to bf16, accumulate in
 fp32 inside cuBLAS/cuDNN, and norms, softmax and schedule math run in fp32.
+A module that lists names in its `fp32_params` keeps those parameters fp32:
+the JAX code uses them uncast (BERT's embedding sum, the fp32 projection
+heads of SLIP, BLIP and LiT).
 """
 
 from __future__ import annotations
@@ -26,16 +29,26 @@ def cast_matmul_params_bf16(
 ) -> Union[nn.Module, Dict[str, torch.Tensor]]:
     """bf16 storage for matmul/conv/embedding weights (ndim >= 2).
 
-    A module is cast in place and returned; a state_dict is returned as a
-    new dict. 1-D norm scales/biases and scalars stay fp32.
+    A module is cast in place and returned, but for the parameters each
+    submodule names in its `fp32_params`; a state_dict is returned as a new
+    dict. 1-D norm scales/biases and scalars stay fp32.
     """
     if isinstance(obj, nn.Module):
         with torch.no_grad():
-            for param in obj.parameters():
-                if _is_matmul_weight(param):
-                    param.data = param.data.to(torch.bfloat16)
+            for module in obj.modules():
+                keep = getattr(module, "fp32_params", ())
+                for name, param in module.named_parameters(recurse=False):
+                    if _is_matmul_weight(param) and name not in keep:
+                        param.data = param.data.to(torch.bfloat16)
         return obj
     return {
         k: v.to(torch.bfloat16) if _is_matmul_weight(v) else v
         for k, v in obj.items()
     }
+
+
+def keep_fp32(module: nn.Module) -> nn.Module:
+    """Mark `module`'s `weight` to stay fp32 under `cast_matmul_params_bf16`;
+    returns `module`."""
+    module.fp32_params = ("weight",)
+    return module

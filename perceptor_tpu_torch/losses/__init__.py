@@ -23,12 +23,14 @@ _LAZY = {
     "TransformersOpenAICLIP": (
         "perceptor_tpu_torch.losses.transformers_openai_clip", "TransformersOpenAICLIP"),
     "MidasDepth": ("perceptor_tpu_torch.losses.midas_depth", "MidasDepth"),
+    "SLIP": ("perceptor_tpu_torch.losses.slip", "SLIP"),
+    "BLIP": ("perceptor_tpu_torch.losses.blip", "BLIP"),
+    "CLOOB": ("perceptor_tpu_torch.losses.cloob", "CLOOB"),
+    "LiT": ("perceptor_tpu_torch.losses.lit", "LiT"),
+    "RuCLIP": ("perceptor_tpu_torch.losses.ruclip", "RuCLIP"),
 }
 
-_NOT_PORTED = (
-    "BLIP", "CLOOB", "SLIP", "RuCLIP", "LiT", "OWLViT", "SuperResolution",
-    "SuperResolutionDiscriminator",
-)
+_NOT_PORTED = ("OWLViT", "SuperResolution", "SuperResolutionDiscriminator")
 
 __all__ = ["LossInterface", "PromptBankLoss", "Smoothness", "Resize", "SphericalDistance"] + list(
     _LAZY

@@ -19,14 +19,17 @@ _EXPORTS = {
         "perceptor_tpu_torch.models.transformers_openai_clip", "TransformersOpenAICLIP"),
     "MidasDepth": ("perceptor_tpu_torch.models.midas_depth", "MidasDepth"),
     "AdaBinsDepth": ("perceptor_tpu_torch.models.adabins_depth", "AdaBinsDepth"),
+    "SLIP": ("perceptor_tpu_torch.models.slip", "SLIP"),
+    "BLIP": ("perceptor_tpu_torch.models.blip", "BLIP"),
+    "CLOOB": ("perceptor_tpu_torch.models.cloob", "CLOOB"),
+    "LiT": ("perceptor_tpu_torch.models.lit", "LiT"),
+    "RuCLIP": ("perceptor_tpu_torch.models.ruclip", "RuCLIP"),
+    "DeepImagePrior": ("perceptor_tpu_torch.models.deep_image_prior", "DeepImagePrior"),
     # the subpackage itself (Text2Image, Face, SuperResolution, ...)
     "latent_diffusion": ("perceptor_tpu_torch.models.latent_diffusion", None),
 }
 
-_NOT_PORTED = (
-    "DeepImagePrior", "SuperResolution", "BLIP", "CLOOB", "SLIP", "LiT", "RuCLIP",
-    "GlideCLIP", "OWLViT", "StyleGANXL",
-)
+_NOT_PORTED = ("SuperResolution", "GlideCLIP", "OWLViT", "StyleGANXL")
 
 __all__ = list(_EXPORTS)
 

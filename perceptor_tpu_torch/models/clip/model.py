@@ -162,9 +162,15 @@ class TextTransformer(nn.Module):
         x = self.token_embedding(tokens) + self.positional_embedding[:seq].to(weight.dtype)
         x = self.transformer(x, causal_mask(seq, device=weight.device))
         x = self.ln_final(x)
-        pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
+        pooled = x[torch.arange(x.shape[0], device=x.device), self.eot_positions(tokens)]
         proj = self.text_projection
         return (pooled.to(proj.dtype) @ proj).float()
+
+    @staticmethod
+    def eot_positions(tokens):
+        """Each row's pooling position: its largest id (the end-of-text
+        token)."""
+        return tokens.argmax(dim=-1)
 
     def forward(self, tokens):
         return self.encode_text(tokens)

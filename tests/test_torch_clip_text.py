@@ -257,4 +257,4 @@ def test_clip_alias_applies_the_quickgelu_fixup():
         assert dataclasses.replace(get_config(fixed), quick_gelu=False) == dataclasses.replace(
             get_config(name), quick_gelu=False)
     with pytest.raises(AttributeError, match="not ported yet"):
-        models.DeepImagePrior
+        models.GlideCLIP

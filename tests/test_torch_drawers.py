@@ -157,6 +157,6 @@ def test_jpeg_drawer_matches_jax():
 
 
 def test_a_drawer_that_is_not_ported_says_so():
-    for name in ("DeepImagePrior", "BruteRuDalle", "StyleGANXL"):
+    for name in ("BruteRuDalle", "StyleGANXL"):
         with pytest.raises(AttributeError, match="not ported yet.*ROADMAP"):
             getattr(drawers, name)

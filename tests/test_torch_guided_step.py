@@ -175,7 +175,10 @@ def test_port_imports_no_jax():
         "             'losses.transformers_openai_clip', 'losses.simulacra_aesthetic',\n"
         "             'losses.aesthetic_visual_assessment', 'models.adabins_depth',\n"
         "             'models.midas_depth', 'losses.midas_depth', 'utils.flops',\n"
-        "             'utils.profiling', 'utils.bench_env', 'core.remat'):\n"
+        "             'utils.profiling', 'utils.bench_env', 'core.remat', 'models.dual_encoder',\n"
+        "             'models.slip', 'models.blip', 'models.cloob', 'models.lit', 'models.ruclip',\n"
+        "             'losses.slip', 'losses.blip', 'losses.cloob', 'losses.lit', 'losses.ruclip',\n"
+        "             'ops.deform_conv', 'models.deep_image_prior', 'drawers.deep_image_prior'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
@@ -186,6 +189,9 @@ def test_port_imports_no_jax():
         "losses.LPIPS, losses.StyleTransfer, losses.Memorability, losses.SimulacraAesthetic\n"
         "losses.AestheticVisualAssessment, losses.TransformersOpenAICLIP\n"
         "models.MidasDepth, models.AdaBinsDepth, losses.MidasDepth\n"
+        "models.SLIP, models.BLIP, models.CLOOB, models.LiT, models.RuCLIP, models.DeepImagePrior\n"
+        "losses.SLIP, losses.BLIP, losses.CLOOB, losses.LiT, losses.RuCLIP\n"
+        "drawers.DeepImagePrior, perceptor_tpu_torch.ops.deform_conv2d\n"
         "from perceptor_tpu_torch.models.stable_diffusion import Conditioning\n"
         "ld = models.latent_diffusion\n"
         "ld.Text2Image, ld.Face, ld.SuperResolution, ld.VQModel, ld.VectorQuantizer\n"

@@ -222,6 +222,6 @@ def test_spherical_distance_loss_matches_jax(wrappers):
 
 def test_a_loss_that_is_not_ported_says_so():
     with pytest.raises(AttributeError, match="not ported yet.*ROADMAP"):
-        losses.BLIP
+        losses.OWLViT
     with pytest.raises(AttributeError, match="has no attribute"):
         losses.NoSuchLoss
