@@ -190,7 +190,30 @@ exits non-zero without a result line:
                   offsets at lr / 10), and `ops.deform_conv2d` with zero
                   offsets against `F.conv2d` at a 192-channel 256 x 256 layer
                   in fp32 and bf16; each phase's seconds;
-33. timings       each kernel, its plain version and PyTorch's
+33. rudalle_optimize  10 Adam steps (lr 0.01) of `run_on_device` over
+                  `drawers.BruteRuDalle` (ruDALL-E's Gumbel VQGAN at full
+                  width, the latent encoded from a seeded 256px fractal image)
+                  under OpenCLIP ViT-B/32 to a random target: 4 / 4 / 4 flash
+                  launches a step at (1, 1, 1024, 512), 3 / 0 / 0 an encode,
+                  the loss falls, a second run bitwise equal, images in
+                  [0, 1], a profiled step; `rudalle_optimize_dwt`, 3 steps of
+                  the DWT variant (512px images), 4 / 4 / 4 and repeatable;
+34. super_resolution  Real-ESRGAN x4 (23 RRDBs) 128 -> 512px forward and
+                  backward, bf16 against an fp32 build; `enhance` in 64px
+                  tiles on a 200 x 232 frame against the whole frame (the
+                  difference on the tiles' interiors reported); the
+                  animevideo-xsx4 SRVGG forward; `losses.SuperResolution("x2")`
+                  and `SuperResolutionDiscriminator()` forward and backward
+                  at 512px; no flash launch;
+35. owlvit_loss   `losses.OWLViT()` (B/32 at 768px) with two queries, its
+                  logits bf16 against fp32, 5 Adam steps of a 256px `Raw`:
+                  no flash launch (577 tokens);
+36. glide_clip    `models.GlideCLIP()`: `encode_images` of 4 images at four
+                  timesteps, forward and backward, bf16 against fp32, and
+                  `encode_texts`; no flash launch (257 tokens);
+   each of 33-36 prints ms, device ms (a profile), launches, peak memory
+   and the card's name and power limit;
+37. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
                   backward where it takes the head_dim (d <= 256), beside
@@ -321,6 +344,22 @@ PER_STEP = {
     # LiT-L16L (197 image tokens, a masked 16-token BERT) and ruCLIP L/14 at
     # 336px (577 image tokens, a causal text tower), per forward + backward
     "clip_variants": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # ruDALL-E's VQGAN at 256px attends at 32 x 32 (S = 1024, one head of
+    # 512): an optimizer step decodes the latent, forward and backward,
+    # through the decoder's mid block and the three AttnBlocks of its level 0
+    # (vae.py Decoder: n_res_blocks + 1 resnets, each followed by one); an
+    # encode runs the encoder's two level-3 AttnBlocks and its mid block,
+    # forward only. OpenCLIP ViT-B/32 launches none
+    "rudalle_optimize": {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4},
+    "rudalle_encode": {"flash_fwd": 3, "flash_dq": 0, "flash_dkv": 0},
+    "rudalle_optimize_dwt": {"flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4},
+    # Real-ESRGAN and its discriminator: convolutions only, per phase;
+    # OWL-ViT B/32 at 768px (577 tokens; a causal 16-token text tower), per
+    # optimizer step; GLIDE's CLIP (257 image tokens, a causal 77-token text
+    # tower), per phase
+    "super_resolution": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "owlvit_loss": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "glide_clip": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -470,6 +509,27 @@ DEFORM_BF16_RTOL = 8e-3
 # LiT and ruCLIP at published widths
 LIT_NAME = "LiT-L16L"
 RUCLIP_NAME = "ruclip-vit-large-patch14-336"
+# ruDALL-E's Gumbel VQGAN (GUMBEL_F8) at 256px under OpenCLIP ViT-B/32,
+# Adam over the latent; a short run of the DWT variant beside it
+RUDALLE_SIZE = 256
+RUDALLE_STEPS = 10
+RUDALLE_DWT_STEPS = 3
+RUDALLE_LR = 0.01
+# Real-ESRGAN x4 on 128px (512px out); `enhance` tiled on a frame no
+# multiple of the tile; both SR losses at 512px
+SR_NAME = "x4"
+SR_VIDEO_NAME = "RealESRGANv2-animevideo-xsx4"
+SR_SIZE = 128
+SR_ENHANCE_FRAME = (200, 232)
+SR_TILE, SR_TILE_PAD = 64, 10
+SR_LOSS_NAME = "x2"
+SR_LOSS_SIZE = 512
+# OWL-ViT B/32 at 768px over a 256px Raw, two queries; GLIDE's CLIP at 64px
+OWLVIT_QUERIES = ["a lighthouse", "a horse"]
+OWLVIT_STEPS = 5
+OWLVIT_RAW_SIZE = 256
+GLIDE_BATCH = 4
+GLIDE_TIMESTEPS = (0, 250, 500, 999)
 # `optimize` and `run_on_device` do the same arithmetic in the same order
 RUN_ON_DEVICE_ATOL = 1e-6
 # the JPEG decode on the card against the CPU's, same coefficients, fp32
@@ -2849,6 +2909,341 @@ def phase_clip_variants(fa):
     return launches, measured
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def timed_ms(fn) -> tuple:
+    """`fn()` between two CUDA events: (its result, ms)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _rudalle_adam(params):
+    import torch
+
+    return torch.optim.Adam(params, lr=RUDALLE_LR)
+
+
+def rudalle_run(fa, path, drawer, loss, steps) -> dict:
+    """`engine.run_on_device` over a ruDALL-E drawer for `steps` steps:
+    launches a step held to PER_STEP[path]; a second run from the same latent
+    bitwise equal to the first; finite losses; the final latent's images
+    finite and in [0, 1]; ms a step, peak memory."""
+    import torch
+
+    from perceptor_tpu_torch import engine
+
+    engine.run_on_device(drawer, [loss], drawer.params, 1, optimizer=_rudalle_adam)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    (final, history), ms = timed_ms(lambda: engine.run_on_device(
+        drawer, [loss], drawer.params, steps, optimizer=_rudalle_adam))
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, steps)
+    check_per_step(path, measured)
+    peak = torch.cuda.max_memory_allocated()
+    _, again = engine.run_on_device(drawer, [loss], drawer.params, steps, optimizer=_rudalle_adam)
+    if not torch.equal(history, again):
+        raise AssertionError(f"{path}: two runs differ: {history.tolist()} vs {again.tolist()}")
+    with torch.no_grad():
+        images = drawer.synthesize(final)
+    history = history.tolist()
+    if not (all(math.isfinite(h) for h in history) and torch.isfinite(images).all()
+            and float(images.min()) >= 0.0 and float(images.max()) <= 1.0):
+        raise AssertionError(f"{path}: history {history} or images off")
+    return {"steps": steps, "history": history, "repeat_bitwise_equal": True,
+            "images_shape": list(images.shape), "ms_per_step": ms / steps,
+            "peak_mem_bytes": peak, "launches": launches, "launches_per_step": measured}
+
+
+def phase_rudalle_optimize(fa):
+    """`drawers.BruteRuDalle` (GUMBEL_F8, bf16, random weights from seed 0)
+    from a seeded RUDALLE_SIZE fractal image under
+    `losses.OpenCLIP("ViT-B-32")` to a random target, RUDALLE_STEPS Adam
+    steps (lr RUDALLE_LR) of `engine.run_on_device`: 4 / 4 / 4 flash
+    launches a step at (1, 1, 1024, 512), the loss falls, two runs bitwise
+    equal, images in [0, 1]; the encode (at construction and once more,
+    the same latent): 3 / 0 / 0; a profiled step; then RUDALLE_DWT_STEPS of
+    the DWT variant (512px images), 4 / 4 / 4 and repeatable too. Returns
+    ({path: launches}, {path: launches per step})."""
+    import torch
+
+    from perceptor_tpu_torch import drawers, engine, losses
+    from perceptor_tpu_torch.drawers import inits
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    loss = random_target(losses.OpenCLIP("ViT-B-32"), seed=1)
+    init = inits.fractal((1, 3, RUDALLE_SIZE, RUDALLE_SIZE), 0)
+    fa.reset_launches()
+    drawer = drawers.BruteRuDalle(init, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with torch.no_grad():
+        quant, encode_ms = timed_ms(lambda: drawer.encode(torch.as_tensor(init, device="cuda")))
+    encode_launches = dict(fa.LAUNCHES)
+    encode_measured = per_step(encode_launches, 2)
+    check_per_step("rudalle_encode", encode_measured)
+    if not torch.equal(quant, drawer.quant):
+        raise AssertionError("rudalle_optimize: the encode does not repeat the constructor's")
+    record = rudalle_run(fa, "rudalle_optimize", drawer, loss, RUDALLE_STEPS)
+    if not record["history"][-1] < record["history"][0]:
+        raise AssertionError(f"rudalle_optimize: loss did not fall: {record['history']}")
+    record["profile"] = profile_summary(engine.make_guidance_step(drawer, [loss], _rudalle_adam))
+    emit({"phase": "rudalle_optimize", "ok": True, "card": card, "image_size": RUDALLE_SIZE,
+          "lr": RUDALLE_LR, "latent_shape": list(drawer.quant.shape),
+          "vqgan_parameters": sum(p.numel() for p in drawer.model.parameters()),
+          "build_s": build_s, "encode_ms": encode_ms, "encode_launches": encode_launches,
+          "encode_launches_per_call": encode_measured, **record,
+          "seconds": time.perf_counter() - t0})
+    del drawer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dwt = drawers.BruteRuDalle(init, dwt=True, seed=0)
+    dwt_record = rudalle_run(fa, "rudalle_optimize_dwt", dwt, loss, RUDALLE_DWT_STEPS)
+    emit({"phase": "rudalle_optimize_dwt", "ok": True, "card": card, "dwt": True,
+          "image_size": RUDALLE_SIZE, "lr": RUDALLE_LR, **dwt_record,
+          "seconds": time.perf_counter() - t0})
+    return ({"rudalle_optimize": record["launches"], "rudalle_encode": encode_launches,
+             "rudalle_optimize_dwt": dwt_record["launches"]},
+            {"rudalle_optimize": record["launches_per_step"], "rudalle_encode": encode_measured,
+             "rudalle_optimize_dwt": dwt_record["launches_per_step"]})
+
+
+def check_bf16_against_fp32(label, got, want) -> float:
+    """Relative L2 of a bf16 build's output `got` from an fp32 build's
+    `want`: at most TEXT_BF16_RTOL, `got` finite."""
+    err = _rel_l2(got, want)
+    if not (torch_finite(got) and err <= TEXT_BF16_RTOL):
+        raise AssertionError(f"{label}: bf16 vs fp32 relative L2 {err}")
+    return err
+
+
+def torch_finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def phase_super_resolution(fa):
+    """`models.SuperResolution(SR_NAME)` (23 RRDBs, 64 / 32 channels, bf16)
+    on a SR_SIZE image, forward and backward, against an fp32 build of the
+    same weights; `enhance` of a SR_ENHANCE_FRAME frame in SR_TILE tiles
+    against the whole frame, the difference reported on the tiles'
+    interiors; SR_VIDEO_NAME forward against fp32; `losses.SuperResolution
+    (SR_LOSS_NAME)` and `SuperResolutionDiscriminator()` forward and backward
+    at SR_LOSS_SIZE: finite values, finite nonzero gradients, no flash
+    launch. Returns (launches, launches per phase)."""
+    import torch
+
+    from perceptor_tpu_torch import losses, models
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    gen = torch.Generator("cuda").manual_seed(61)
+    model = models.SuperResolution(SR_NAME)
+    scale = model.scale
+    images = torch.rand((1, 3, SR_SIZE, SR_SIZE), device="cuda", generator=gen)
+    images.requires_grad_(True)
+    probe = torch.randn((1, 3, SR_SIZE * scale, SR_SIZE * scale), device="cuda", generator=gen)
+
+    def fwd_bwd():
+        up = model.upsample(images)
+        return up, torch.autograd.grad((up * probe).sum(), images)[0]
+
+    fwd_bwd()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (up, grad), fwd_bwd_ms = timed_ms(fwd_bwd)
+    peak = torch.cuda.max_memory_allocated()
+    if not (torch_finite(grad) and float(grad.abs().max()) > 0):
+        raise AssertionError("super_resolution: upsample gradient not finite or zero")
+    fp32 = models.SuperResolution(SR_NAME, half=False)
+    fp32.load_state_dict({k: v.float() for k, v in model.module.state_dict().items()})
+    with torch.no_grad():
+        up_err = check_bf16_against_fp32("super_resolution x4", up, fp32.upsample(images))
+    del fp32
+    profile = profile_summary(fwd_bwd)
+
+    frame = torch.rand((1, 3, *SR_ENHANCE_FRAME), device="cuda", generator=gen)
+    with torch.no_grad():
+        whole, whole_ms = timed_ms(lambda: model.enhance(frame))
+        tiled, tiled_ms = timed_ms(lambda: model.enhance(frame, tile_size=SR_TILE,
+                                                         tile_pad=SR_TILE_PAD))
+    shape = (1, 3, SR_ENHANCE_FRAME[0] * scale, SR_ENHANCE_FRAME[1] * scale)
+    if not (tuple(whole.shape) == tuple(tiled.shape) == shape and torch_finite(tiled)):
+        raise AssertionError(f"super_resolution: enhance shapes {whole.shape} {tiled.shape}")
+    # the tiles' interiors: away by tile_pad from each tile's edge, in the
+    # pre-padded frame's coordinates (enhance pads 10 at the bottom and right)
+    interior = torch.ones(shape[-2:], dtype=torch.bool, device="cuda")
+    for axis, size in enumerate(SR_ENHANCE_FRAME):
+        keep = torch.zeros(size, dtype=torch.bool, device="cuda")
+        for start in range(0, size, SR_TILE):
+            keep[start + SR_TILE_PAD: start + SR_TILE - SR_TILE_PAD] = True
+        keep = keep.repeat_interleave(scale)
+        interior &= keep[:, None] if axis == 0 else keep[None, :]
+    diff = (tiled - whole).abs()
+    enhance = {"frame": list(SR_ENHANCE_FRAME), "tile_size": SR_TILE, "tile_pad": SR_TILE_PAD,
+               "whole_ms": whole_ms, "tiled_ms": tiled_ms,
+               "interior_max_abs_diff": float(diff[..., interior].max()),
+               "interior_rel_l2": _rel_l2(tiled[..., interior], whole[..., interior]),
+               "max_abs_diff": float(diff.max()), "whole_max_abs": float(whole.abs().max())}
+
+    video = models.SuperResolution(SR_VIDEO_NAME)
+    video_fp32 = models.SuperResolution(SR_VIDEO_NAME, half=False)
+    video_fp32.load_state_dict({k: v.float() for k, v in video.module.state_dict().items()})
+    with torch.no_grad():
+        video_up, video_ms = timed_ms(lambda: video.upsample(images))
+        video_err = check_bf16_against_fp32("super_resolution video", video_up,
+                                            video_fp32.upsample(images))
+    del video, video_fp32
+
+    loss_records = {}
+    big = torch.rand((1, 3, SR_LOSS_SIZE, SR_LOSS_SIZE), device="cuda", generator=gen)
+    big.requires_grad_(True)
+    for label, loss in ((f"SuperResolution_{SR_LOSS_NAME}", losses.SuperResolution(SR_LOSS_NAME)),
+                        ("SuperResolutionDiscriminator", losses.SuperResolutionDiscriminator())):
+        def value_grad(loss=loss):
+            value = loss(big)
+            return value, torch.autograd.grad(value, big)[0]
+
+        value_grad()  # warm-up
+        (value, grad), ms = timed_ms(value_grad)
+        if not (math.isfinite(value.item()) and torch_finite(grad)
+                and float(grad.abs().max()) > 0):
+            raise AssertionError(f"super_resolution {label}: value {float(value)} or gradient off")
+        loss_records[label] = {"value": value.item(), "fwd_bwd_ms": ms,
+                               "profile": profile_summary(value_grad)}
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, 1)
+    check_per_step("super_resolution", measured)
+    emit({"phase": "super_resolution", "ok": True, "card": card, "model": SR_NAME,
+          "parameters": sum(p.numel() for p in model.module.parameters()),
+          "in_size": SR_SIZE, "out_size": SR_SIZE * scale, "fwd_bwd_ms": fwd_bwd_ms,
+          "peak_mem_bytes": peak, "profile": profile, "bf16_vs_fp32_rel_l2": up_err,
+          "tol": TEXT_BF16_RTOL, "enhance": enhance,
+          "video": {"model": SR_VIDEO_NAME, "fwd_ms": video_ms, "bf16_vs_fp32_rel_l2": video_err},
+          "losses": loss_records, "loss_size": SR_LOSS_SIZE, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches, measured
+
+
+def phase_owlvit_loss(fa):
+    """`losses.OWLViT()` (B/32 at 768px, bf16) with OWLVIT_QUERIES through the
+    port's vocabulary: its logits on a `Raw` fractal image against an fp32
+    build of the same weights; then OWLVIT_STEPS Adam steps of
+    `run_on_device` over the OWLVIT_RAW_SIZE `Raw`: finite losses and pixels,
+    no flash launch, ms a step, a profiled step, peak memory. Returns
+    (launches, launches per step)."""
+    import torch
+
+    from perceptor_tpu_torch import drawers, engine, losses, models
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    loss = losses.OWLViT().add_texts_(OWLVIT_QUERIES)
+    drawer = drawers.Raw.random_fractal_image((1, 3, OWLVIT_RAW_SIZE, OWLVIT_RAW_SIZE), seed=0)
+    build_s = time.perf_counter() - t0
+    fp32 = models.OWLViT(precision="fp32")
+    fp32.load_state_dict({k: v.float() for k, v in loss.model.module.state_dict().items()})
+    with torch.no_grad():
+        images = drawer.synthesize()
+        logits = loss.model(images, loss.encodings).logits
+        err = check_bf16_against_fp32("owlvit_loss", logits,
+                                      fp32(images, loss.encodings).logits)
+    del fp32
+    torch.cuda.empty_cache()
+    engine.run_on_device(drawer, [loss], drawer.params, 1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    (final, history), ms = timed_ms(lambda: engine.run_on_device(
+        drawer, [loss], drawer.params, OWLVIT_STEPS))
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, OWLVIT_STEPS)
+    check_per_step("owlvit_loss", measured)
+    history = history.tolist()
+    if not (all(math.isfinite(h) for h in history) and torch_finite(final)):
+        raise AssertionError(f"owlvit_loss: history {history} or pixels not finite")
+    emit({"phase": "owlvit_loss", "ok": True, "card": card, "queries": OWLVIT_QUERIES,
+          "image_size": loss.model.config.image_size, "raw_size": OWLVIT_RAW_SIZE,
+          "parameters": sum(p.numel() for p in loss.model.module.parameters()),
+          "logits_shape": list(logits.shape), "bf16_vs_fp32_rel_l2": err, "tol": TEXT_BF16_RTOL,
+          "steps": OWLVIT_STEPS, "history": history, "ms_per_step": ms / OWLVIT_STEPS,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "profile": profile_summary(engine.make_guidance_step(drawer, [loss])),
+          "launches": launches, "build_s": build_s, "seconds": time.perf_counter() - t0})
+    return launches, measured
+
+
+def phase_glide_clip(fa):
+    """`models.GlideCLIP()` (both towers, bf16): `encode_images` of
+    GLIDE_BATCH random 64px images at GLIDE_TIMESTEPS, forward and backward
+    (a finite nonzero input gradient), against an fp32 build of the same
+    weights; `encode_texts` of two prompts through the port's vocabulary;
+    unit norms, no flash launch. Returns (launches, launches per phase)."""
+    import torch
+
+    from perceptor_tpu_torch import models
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    model = models.GlideCLIP()
+    size = model.config.image_size
+    gen = torch.Generator("cuda").manual_seed(71)
+    diffused = torch.rand((GLIDE_BATCH, 3, size, size), device="cuda", generator=gen)
+    diffused.requires_grad_(True)
+    ts = torch.tensor(GLIDE_TIMESTEPS, device="cuda")
+    probe = torch.randn((GLIDE_BATCH, model.config.n_embd), device="cuda", generator=gen)
+
+    def fwd_bwd():
+        encodings = model.encode_images(diffused, ts)
+        return encodings, torch.autograd.grad((encodings * probe).sum(), diffused)[0]
+
+    fwd_bwd()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (encodings, grad), ms = timed_ms(fwd_bwd)
+    peak = torch.cuda.max_memory_allocated()
+    texts, text_ms = timed_ms(lambda: model.encode_texts(list(TEXT_PROMPTS)))
+    norms = torch.linalg.norm(torch.cat([encodings.detach(), texts]), dim=-1)
+    if not (torch_finite(grad) and float(grad.abs().max()) > 0
+            and torch.allclose(norms, torch.ones_like(norms), atol=1e-3)):
+        raise AssertionError(f"glide_clip: gradient or norms off: {norms.tolist()}")
+    fp32 = models.GlideCLIP(precision="fp32")
+    fp32.load_state_dicts(
+        text={k: v.float() for k, v in model.text_encoder.state_dict().items()},
+        image={k: v.float() for k, v in model.image_encoder.state_dict().items()})
+    with torch.no_grad():
+        err = check_bf16_against_fp32("glide_clip", encodings, fp32.encode_images(diffused, ts))
+    del fp32
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, 1)
+    check_per_step("glide_clip", measured)
+    emit({"phase": "glide_clip", "ok": True, "card": card, "batch": GLIDE_BATCH,
+          "timesteps": list(GLIDE_TIMESTEPS), "image_size": size,
+          "parameters": sum(p.numel() for m in (model.text_encoder, model.image_encoder)
+                            for p in m.parameters()),
+          "image_fwd_bwd_ms": ms, "text_encode_ms": text_ms, "peak_mem_bytes": peak,
+          "profile": profile_summary(fwd_bwd), "bf16_vs_fp32_rel_l2": err,
+          "tol": TEXT_BF16_RTOL, "text_shape": list(texts.shape), "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches, measured
+
+
 def phase_timings(fa, peak_flops, peak_bw) -> list:
     """Kernel, plain version, SDPA and the fused flash backward per site,
     and the bound."""
@@ -2954,6 +3349,10 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
             return sum(r["ms"] * r["per_step"] for r in rows
                        if r["kernel"] == name and r["path"] == path)
 
+        # ruDALL-E's AttnBlocks run at the KL-f8 decoder's 256px site
+        vqgan_site_ms = sum(r["ms"] for r in rows
+                            if r["kernel"] == name and r["site"] == "kl_f8_mid_attn_256")
+
         t_ops = sum(r["flops"] * r["per_step"] for r in mine)
         t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
         table.append({
@@ -2987,6 +3386,9 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
                 "ldm_face": path_ms("ldm_face") if name == "flash_fwd" else 0.0,
                 "ldm_text2image_decode":
                     path_ms("ldm_text2image_decode") if name == "flash_fwd" else 0.0,
+                # per optimizer step, and per encode
+                **{path: PER_STEP[path][name] * vqgan_site_ms for path in (
+                    "rudalle_optimize", "rudalle_optimize_dwt", "rudalle_encode")},
             },
         })
     return table
@@ -3005,10 +3407,7 @@ def main() -> int:
     from perceptor_tpu_torch.utils.bench_env import triton_imports
     from perceptor_tpu_torch.utils.flops import card_peaks
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     peak_flops, peak_bw = card_peaks(name)
@@ -3102,6 +3501,16 @@ def main() -> int:
     measured.update(dip_measured)
     emit({"phase": "dip_optimize_seconds", "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+    # ruDALL-E's drawer on the flash kernels, then Real-ESRGAN, OWL-ViT and
+    # GLIDE's CLIP
+    rudalle_launches, rudalle_measured = phase_rudalle_optimize(fa)
+    launches.update(rudalle_launches)
+    measured.update(rudalle_measured)
+    torch.cuda.empty_cache()
+    for phase in (phase_super_resolution, phase_owlvit_loss, phase_glide_clip):
+        path = phase.__name__.removeprefix("phase_")
+        launches[path], measured[path] = phase(fa)
+        torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, measured, errors)}))

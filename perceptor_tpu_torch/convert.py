@@ -9,9 +9,10 @@ perceptor_tpu/models/velocity_diffusion/convert.py,
 perceptor_tpu/models/monster_diffusion/convert.py,
 perceptor_tpu/models/latent_diffusion/bert.py and first_stage.py,
 perceptor_tpu/models/vgg.py, lpips.py, resnet.py, resmem.py,
-adabins_depth.py, midas_depth.py, slip.py, blip.py, cloob.py, lit.py and
-ruclip.py; the deep image prior has no JAX converter, its names are
-flax's):
+adabins_depth.py, midas_depth.py, slip.py, blip.py, cloob.py, lit.py,
+ruclip.py, super_resolution.py, owlvit.py and glide_clip.py; the deep image
+prior has no JAX converter, its names are flax's; ruDALL-E's VQGAN is the
+SD VAE's diffusers names plus taming's `quantize.*`):
 
     conv   (kh, kw, I, O) -> (O, I, kh, kw)
     dense  (I, O)         -> (O, I)      (ADM's 1x1 conv1d: (O, I, 1))
@@ -23,13 +24,16 @@ CompVis's for its spatial transformers), k-diffusion's (MonsterDiffusion)
 x-transformer's (BERT), torchvision's (the VGG, AlexNet, SqueezeNet and
 ResNet trunks), lpips' (its heads), ResMem's, gen-efficientnet's, the
 AdaBins repository's, MiDaS's (timm's ViT inside), SLIP's, BLIP's (timm
-and HF-BERT), cloob-training's and LiT's, so the JAX package's
+and HF-BERT), cloob-training's, LiT's, basicsr's (Real-ESRGAN), HF
+OWL-ViT's and GLIDE's, so the JAX package's
 own `unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the three
 `from_torch`, `convert_bert`, `convert_torchvision_features`,
 `convert_resnet`, `convert_resmem`, `convert_efficientnet`,
 `convert_adabins`, `convert_dpt`, `convert_midas_net`,
-`convert_midas_net_small`, `convert_slip`, `convert_blip`, `convert_cloob`
-and `convert_lit` map these state_dicts back to the same trees.
+`convert_midas_net_small`, `convert_slip`, `convert_blip`, `convert_cloob`,
+`convert_lit`, `convert_rrdbnet`, `convert_srvgg`,
+`convert_unet_discriminator`, `convert_owlvit`, `convert_glide_text` and
+`convert_glide_image` map these state_dicts back to the same trees.
 
 One map is torch to torch: `open_clip_state_dict_from_hf` takes an HF
 `transformers` CLIPModel state_dict to the port's open_clip names.
@@ -47,11 +51,13 @@ from perceptor_tpu_torch.models.adabins_depth import AdaBinsConfig, EfficientNet
 from perceptor_tpu_torch.models.blip import BLIPConfig
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
 from perceptor_tpu_torch.models.cloob import CLOOBConfig
+from perceptor_tpu_torch.models.glide_clip import GlideCLIPConfig
 from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
 from perceptor_tpu_torch.models.latent_diffusion.bert import BERTConfig
 from perceptor_tpu_torch.models.lit import LiTConfig
 from perceptor_tpu_torch.models.midas_depth import DPTConfig, MidasNetConfig, MidasNetSmallConfig
 from perceptor_tpu_torch.models.monster_diffusion.net import MonsterConfig
+from perceptor_tpu_torch.models.owlvit import OWLViTConfig
 from perceptor_tpu_torch.models.slip import SLIPConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
@@ -929,3 +935,131 @@ def deep_image_prior_state_dict_from_jax(params: Mapping, prefix: str = "") -> S
         else:
             sd[f"{prefix}{'weight' if name == 'scale' else name}"] = _t(value)
     return sd
+
+
+# -- ruDALL-E's VQGAN, Real-ESRGAN, OWL-ViT and GLIDE's CLIP --
+
+
+def rudalle_state_dict_from_jax(params: Mapping, cfg: VAEConfig) -> StateDict:
+    """The JAX `GumbelVQGAN` params ({encoder, decoder, quant_conv,
+    post_quant_conv, proj, embed}) -> `drawers/rudalle.py GumbelVQGAN`'s
+    names: the VAE's diffusers names, `quantize.proj` and the codebook
+    `quantize.embed.weight`."""
+    sd = vae_state_dict_from_jax(params, cfg)
+    _conv(params["proj"], "quantize.proj", sd)
+    sd["quantize.embed.weight"] = _t(params["embed"])
+    return sd
+
+
+def rrdbnet_state_dict_from_jax(params: Mapping) -> StateDict:
+    """Flax `RRDBNet` params -> basicsr's RRDBNet names (`body_{i}` becomes
+    `body.{i}`); the inverse of `convert_rrdbnet`."""
+    sd: StateDict = {}
+    for name, value in params.items():
+        if name.startswith("body_"):
+            for rdb, convs in value.items():
+                for conv, p in convs.items():
+                    _conv(p, f"body.{name[len('body_'):]}.{rdb}.{conv}", sd)
+        else:
+            _conv(value, name, sd)
+    return sd
+
+
+def srvgg_state_dict_from_jax(params: Mapping, num_conv: int) -> StateDict:
+    """Flax `SRVGGNetCompact` params -> basicsr's `body.{k}` list: conv
+    `body_{i}` at 2 i, PReLU `prelu_{i}` at 2 i + 1, `body_last` at
+    2 num_conv + 2; the inverse of `convert_srvgg`."""
+    sd: StateDict = {}
+    for i in range(num_conv + 1):
+        _conv(params[f"body_{i}"], f"body.{2 * i}", sd)
+        sd[f"body.{2 * i + 1}.weight"] = _t(params[f"prelu_{i}"])
+    _conv(params["body_last"], f"body.{2 * num_conv + 2}", sd)
+    return sd
+
+
+def unet_discriminator_state_dict_from_jax(params: Mapping) -> StateDict:
+    """Flax `UNetDiscriminatorSN` params (spectral norm folded) -> the port's
+    plain `conv{i}` names; `convert_unet_discriminator` reads them back."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        _conv(p, name, sd)
+    return sd
+
+
+def _owlvit_layers(tower: Mapping, prefix: str, layers: int, sd: StateDict) -> None:
+    for i in range(layers):
+        p, dst = tower[f"layer_{i}"], f"{prefix}.encoder.layers.{i}"
+        _norm(p["layer_norm1"], f"{dst}.layer_norm1", sd)
+        _norm(p["layer_norm2"], f"{dst}.layer_norm2", sd)
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(p[name], f"{dst}.self_attn.{name}", sd)
+        _linear(p["fc1"], f"{dst}.mlp.fc1", sd)
+        _linear(p["fc2"], f"{dst}.mlp.fc2", sd)
+
+
+def owlvit_state_dict_from_jax(params: Mapping, cfg: OWLViTConfig) -> StateDict:
+    """The JAX `OWLViTDetection` params ({vision, text, merge_norm, the
+    heads' denses}) -> HF `OwlViTForObjectDetection`'s names
+    (`models/owlvit.py`); the inverse of `convert_owlvit`."""
+    vision, text = params["vision"], params["text"]
+    vp, tp = "owlvit.vision_model", "owlvit.text_model"
+    sd: StateDict = {}
+    _conv(vision["patch_embedding"], f"{vp}.embeddings.patch_embedding", sd)
+    sd[f"{vp}.embeddings.class_embedding"] = _t(vision["class_embedding"])
+    sd[f"{vp}.embeddings.position_embedding.weight"] = _t(vision["position_embedding"])
+    _norm(vision["pre_layernorm"], f"{vp}.pre_layernorm", sd)
+    _norm(vision["post_layernorm"], f"{vp}.post_layernorm", sd)
+    _owlvit_layers(vision, vp, cfg.vision_layers, sd)
+    sd[f"{tp}.embeddings.token_embedding.weight"] = _t(text["token_embedding"])
+    sd[f"{tp}.embeddings.position_embedding.weight"] = _t(text["position_embedding"])
+    _norm(text["final_layer_norm"], f"{tp}.final_layer_norm", sd)
+    _owlvit_layers(text, tp, cfg.text_layers, sd)
+    _linear(text["text_projection"], "owlvit.text_projection", sd)
+    _norm(params["merge_norm"], "layer_norm", sd)
+    for src, dst in (("class_dense0", "class_head.dense0"), ("logit_shift", "class_head.logit_shift"),
+                     ("logit_scale", "class_head.logit_scale"), ("box_dense0", "box_head.dense0"),
+                     ("box_dense1", "box_head.dense1"), ("box_dense2", "box_head.dense2")):
+        _linear(params[src], dst, sd)
+    return sd
+
+
+def _glide_affine(p: Mapping, prefix: str, sd: StateDict) -> None:
+    sd[f"{prefix}.w"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.b"] = _t(p["bias"])
+
+
+def _glide_ln(p: Mapping, prefix: str, sd: StateDict) -> None:
+    sd[f"{prefix}.g"] = _t(p["scale"])
+    sd[f"{prefix}.b"] = _t(p["bias"])
+
+
+def _glide_tower(p: Mapping, n_blocks: int, sd: StateDict) -> None:
+    for i in range(n_blocks):
+        bp, dst = p[f"block_{i}"], f"blocks.block_{i}"
+        _glide_ln(bp["attn_ln"], f"{dst}.f_attn.ln", sd)
+        for name in ("f_q", "f_k", "f_v", "f_c"):
+            _glide_affine(bp[name], f"{dst}.f_attn.{name}", sd)
+        _glide_ln(bp["mlp_ln"], f"{dst}.f_mlp.ln", sd)
+        _glide_affine(bp["f_1"], f"{dst}.f_mlp.f_1", sd)
+        _glide_affine(bp["f_2"], f"{dst}.f_mlp.f_2", sd)
+    _glide_ln(p["out_ln"], "blocks.output.ln", sd)
+    _glide_affine(p["out_proj"], "blocks.output.f", sd)
+
+
+def glide_clip_state_dict_from_jax(params: Mapping, cfg: GlideCLIPConfig) -> Dict[str, StateDict]:
+    """The JAX `GlideCLIP.params` tree ({"text", "image"}) -> GLIDE's two
+    state_dicts under the same keys, as `GlideCLIP.load_state_dicts` takes
+    them; the inverse of `convert_glide_text` / `convert_glide_image`."""
+    text, image = params["text"], params["image"]
+    text_sd: StateDict = {"blocks.input.w_voc": _t(text["w_voc"]),
+                          "blocks.input.w_pos": _t(text["w_pos"])}
+    _glide_tower(text, cfg.text_blocks, text_sd)
+    image_sd: StateDict = {
+        "blocks.input.patch_proj": _t(np.asarray(image["patch_proj"]["kernel"]).transpose(3, 2, 0, 1)),
+        "blocks.input.w_pos": _t(image["w_pos"]),
+        "blocks.input.w_t": _t(image["w_t"]),
+    }
+    _glide_ln(image["embed_ln"], "blocks.input.ln", image_sd)
+    _glide_tower(image, cfg.image_blocks, image_sd)
+    return {"text": text_sd, "image": image_sd}

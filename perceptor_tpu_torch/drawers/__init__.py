@@ -8,10 +8,11 @@ from perceptor_tpu_torch.drawers.deep_image_prior import DeepImagePrior
 from perceptor_tpu_torch.drawers.interface import DrawingInterface
 from perceptor_tpu_torch.drawers.jpeg import JPEG
 from perceptor_tpu_torch.drawers.raw import Raw
+from perceptor_tpu_torch.drawers.rudalle import BruteRuDalle
 
-_NOT_PORTED = ("BruteRuDalle", "StyleGANXL")
+_NOT_PORTED = ("StyleGANXL",)
 
-__all__ = ["DrawingInterface", "Raw", "JPEG", "BruteDiffusion", "DeepImagePrior"]
+__all__ = ["DrawingInterface", "Raw", "JPEG", "BruteDiffusion", "DeepImagePrior", "BruteRuDalle"]
 
 
 def __getattr__(name):

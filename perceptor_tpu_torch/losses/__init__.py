@@ -1,8 +1,6 @@
 """Guidance objectives (counterpart of perceptor_tpu/losses/__init__.py).
-
-A loss of the JAX package that is not ported yet raises an AttributeError
-that says so; ROADMAP.md queue A lists the order in which they come.
-"""
+Every loss of the JAX package is ported; the model-backed ones import
+lazily."""
 
 from perceptor_tpu_torch.losses.interface import LossInterface
 from perceptor_tpu_torch.losses.prompt_bank import PromptBankLoss
@@ -28,9 +26,11 @@ _LAZY = {
     "CLOOB": ("perceptor_tpu_torch.losses.cloob", "CLOOB"),
     "LiT": ("perceptor_tpu_torch.losses.lit", "LiT"),
     "RuCLIP": ("perceptor_tpu_torch.losses.ruclip", "RuCLIP"),
+    "OWLViT": ("perceptor_tpu_torch.losses.owlvit", "OWLViT"),
+    "SuperResolution": ("perceptor_tpu_torch.losses.super_resolution", "SuperResolution"),
+    "SuperResolutionDiscriminator": (
+        "perceptor_tpu_torch.losses.super_resolution", "SuperResolutionDiscriminator"),
 }
-
-_NOT_PORTED = ("OWLViT", "SuperResolution", "SuperResolutionDiscriminator")
 
 __all__ = ["LossInterface", "PromptBankLoss", "Smoothness", "Resize", "SphericalDistance"] + list(
     _LAZY
@@ -45,8 +45,4 @@ def __getattr__(name):
         value = getattr(importlib.import_module(module_name), attr)
         globals()[name] = value
         return value
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"perceptor_tpu_torch.losses.{name} is not ported yet (ROADMAP.md queue A)"
-        )
     raise AttributeError(f"module 'perceptor_tpu_torch.losses' has no attribute {name!r}")

@@ -25,11 +25,14 @@ _EXPORTS = {
     "LiT": ("perceptor_tpu_torch.models.lit", "LiT"),
     "RuCLIP": ("perceptor_tpu_torch.models.ruclip", "RuCLIP"),
     "DeepImagePrior": ("perceptor_tpu_torch.models.deep_image_prior", "DeepImagePrior"),
+    "SuperResolution": ("perceptor_tpu_torch.models.super_resolution", "SuperResolution"),
+    "OWLViT": ("perceptor_tpu_torch.models.owlvit", "OWLViT"),
+    "GlideCLIP": ("perceptor_tpu_torch.models.glide_clip", "GlideCLIP"),
     # the subpackage itself (Text2Image, Face, SuperResolution, ...)
     "latent_diffusion": ("perceptor_tpu_torch.models.latent_diffusion", None),
 }
 
-_NOT_PORTED = ("SuperResolution", "GlideCLIP", "OWLViT", "StyleGANXL")
+_NOT_PORTED = ("StyleGANXL",)
 
 __all__ = list(_EXPORTS)
 

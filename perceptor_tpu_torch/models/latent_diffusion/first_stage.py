@@ -10,7 +10,7 @@ JAX param does: near-ties flip codes when the arithmetic differs.
 `convert_compvis_autoencoder` renames a CompVis first-stage state_dict
 (`encoder.down.{i}.block.{j}`, decoder levels in reverse order, 1x1-conv
 attention projections) onto the port's names, for the KL and VQ stages
-alike.
+alike; `convert_gumbel_vqgan` adds ruDALL-E's Gumbel quantizer to it.
 """
 
 from __future__ import annotations
@@ -172,4 +172,18 @@ def convert_compvis_autoencoder(
     move("post_quant_conv", "post_quant_conv")
     if "quantize.embedding.weight" in sd:
         out["quantize.embedding.weight"] = sd["quantize.embedding.weight"]
+    return out
+
+
+def convert_gumbel_vqgan(state_dict: Dict, cfg: VAEConfig) -> Dict:
+    """A taming GumbelVQ state_dict (ruDALL-E's vqgan.gumbelf8-sber, or its
+    DWT variant, whose keys carry a "model." prefix; a "state_dict" nesting
+    is read too) -> a state_dict for `drawers.rudalle.GumbelVQGAN`: the
+    CompVis backbone renamed by `convert_compvis_autoencoder`, the quantizer's
+    `quantize.proj` and codebook `quantize.embed` under taming's own names."""
+    state_dict = state_dict.get("state_dict", state_dict)
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+    out = convert_compvis_autoencoder(sd, cfg, prefix="")
+    for key in ("quantize.proj.weight", "quantize.proj.bias", "quantize.embed.weight"):
+        out[key] = sd[key]
     return out

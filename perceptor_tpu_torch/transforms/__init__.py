@@ -1,6 +1,5 @@
 """Differentiable image transforms (counterpart of
-perceptor_tpu/transforms/__init__.py). `SuperResolution` is not ported yet
-and raises an AttributeError that says so (ROADMAP.md queue A item 9)."""
+perceptor_tpu/transforms/__init__.py)."""
 
 from perceptor_tpu_torch.ops.clamp import clamp_with_grad
 from perceptor_tpu_torch.ops.resize import resize
@@ -13,6 +12,7 @@ from perceptor_tpu_torch.transforms.cutouts import (
 from perceptor_tpu_torch.transforms.dynamic_threshold import DynamicThreshold, dynamic_threshold
 from perceptor_tpu_torch.transforms.interface import TransformInterface
 from perceptor_tpu_torch.transforms.resize_transform import Resize
+from perceptor_tpu_torch.transforms.super_resolution import SuperResolution
 
 __all__ = [
     "TransformInterface",
@@ -25,13 +25,5 @@ __all__ = [
     "random_cutouts",
     "dynamic_threshold",
     "DynamicThreshold",
+    "SuperResolution",
 ]
-
-
-def __getattr__(name):
-    if name == "SuperResolution":
-        raise AttributeError(
-            "perceptor_tpu_torch.transforms.SuperResolution is not ported yet "
-            "(ROADMAP.md queue A item 9)"
-        )
-    raise AttributeError(f"module 'perceptor_tpu_torch.transforms' has no attribute {name!r}")

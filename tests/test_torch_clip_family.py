@@ -297,9 +297,17 @@ def test_moved_names_resolve_and_the_rest_still_raise():
     for name in ("SLIP", "BLIP", "CLOOB", "LiT", "RuCLIP"):
         assert issubclass(getattr(losses, name), losses.PromptBankLoss)
     assert issubclass(drawers.DeepImagePrior, drawers.DrawingInterface)
-    for package, name in ((models, "GlideCLIP"), (models, "OWLViT"), (models, "SuperResolution"),
-                          (models, "StyleGANXL"), (losses, "OWLViT"),
-                          (drawers, "BruteRuDalle"), (drawers, "StyleGANXL")):
+    # the next slice's names resolve to the port's classes
+    from perceptor_tpu_torch.drawers.rudalle import BruteRuDalle
+    from perceptor_tpu_torch.losses.owlvit import OWLViT as OWLViTLoss
+    from perceptor_tpu_torch.models.glide_clip import GlideCLIP
+    from perceptor_tpu_torch.models.owlvit import OWLViT
+    from perceptor_tpu_torch.models.super_resolution import SuperResolution
+
+    assert (models.GlideCLIP, models.OWLViT, models.SuperResolution) == (
+        GlideCLIP, OWLViT, SuperResolution)
+    assert losses.OWLViT is OWLViTLoss and drawers.BruteRuDalle is BruteRuDalle
+    for package, name in ((models, "StyleGANXL"), (drawers, "StyleGANXL")):
         with pytest.raises(AttributeError, match="not ported yet"):
             getattr(package, name)
 

@@ -256,5 +256,8 @@ def test_clip_alias_applies_the_quickgelu_fixup():
         assert get_config(fixed, "openai").quick_gelu
         assert dataclasses.replace(get_config(fixed), quick_gelu=False) == dataclasses.replace(
             get_config(name), quick_gelu=False)
+    from perceptor_tpu_torch.models.glide_clip import GlideCLIP
+
+    assert models.GlideCLIP is GlideCLIP
     with pytest.raises(AttributeError, match="not ported yet"):
-        models.GlideCLIP
+        models.StyleGANXL

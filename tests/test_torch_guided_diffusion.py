@@ -309,9 +309,14 @@ def test_what_is_not_ported_says_so_and_cuda_is_the_default():
     with pytest.raises(ValueError, match="takes no context"):
         ADMUNet(adm_config.TINY)(torch.zeros((1, 3, 8, 8)), torch.tensor([1.0]),
                                  torch.zeros((1, 2, 8)))
-    # models.SuperResolution names the ESRGAN wrapper, which is not ported
-    with pytest.raises(AttributeError, match="not ported yet"):
-        models.SuperResolution
+    # models.SuperResolution names the ESRGAN wrapper; the LDM one stays
+    # under models.latent_diffusion
+    from perceptor_tpu_torch.models.super_resolution import SuperResolution
+
+    assert models.SuperResolution is SuperResolution
+    assert models.latent_diffusion.SuperResolution is not SuperResolution
+    with pytest.raises(AttributeError, match="not ported yet.*ROADMAP"):
+        models.StyleGANXL
     with pytest.raises(ValueError, match="Unknown model name"):
         GuidedDiffusion("huge", device="cpu")
     assert models.GuidedDiffusion is GuidedDiffusion

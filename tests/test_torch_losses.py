@@ -221,7 +221,15 @@ def test_spherical_distance_loss_matches_jax(wrappers):
 
 
 def test_a_loss_that_is_not_ported_says_so():
-    with pytest.raises(AttributeError, match="not ported yet.*ROADMAP"):
-        losses.OWLViT
+    # every loss of the JAX package is ported: the last three resolve, and
+    # an unknown name is an AttributeError
+    from perceptor_tpu_torch.losses.owlvit import OWLViT
+    from perceptor_tpu_torch.losses.super_resolution import (
+        SuperResolution,
+        SuperResolutionDiscriminator,
+    )
+
+    assert (losses.OWLViT, losses.SuperResolution, losses.SuperResolutionDiscriminator) == (
+        OWLViT, SuperResolution, SuperResolutionDiscriminator)
     with pytest.raises(AttributeError, match="has no attribute"):
         losses.NoSuchLoss

@@ -158,5 +158,6 @@ def test_transforms_exports():
     assert issubclass(transforms.Resize, transforms.TransformInterface)
     with pytest.raises(NotImplementedError):
         transforms.TransformInterface()(1)
-    with pytest.raises(AttributeError, match="not ported yet.*ROADMAP"):
-        transforms.SuperResolution
+    assert issubclass(transforms.SuperResolution, transforms.TransformInterface)
+    with pytest.raises(AttributeError, match="has no attribute"):
+        transforms.NoSuchTransform
