@@ -211,9 +211,24 @@ exits non-zero without a result line:
 36. glide_clip    `models.GlideCLIP()`: `encode_images` of 4 images at four
                   timesteps, forward and backward, bf16 against fp32, and
                   `encode_texts`; no flash launch (257 tokens);
-   each of 33-36 prints ms, device ms (a profile), launches, peak memory
+37. stylegan_xl_optimize  `models.StyleGANXL("imagenet128")` (bf16
+                  synthesis up to 148px at 512 channels, JAX's seed-0
+                  weights), `latents(1, seeds=[0])` into `drawers.StyleGANXL`,
+                  10 Adam steps (lr 0.05) of `run_on_device` under
+                  `losses.CLIP("ViT-B-32")` to a random target: no flash
+                  launch, the loss falls, finite (1, 3, 128, 128) images, a
+                  second run bitwise equal, bf16 against an fp32 build, a
+                  profiled step with its top kernels; `stylegan_xl_ffhq256`,
+                  the unconditional generator's `latents(2)` forward and
+                  backward to the latents at 256px; `stylegan_xl_checkpoints`,
+                  the generator written as .pt, {'G_ema': module} .pkl, .npz
+                  and a hand-written .safetensors, each loaded through
+                  `utils.checkpoints.load_state_dict` into a zeroed fresh
+                  wrapper: bitwise equal images; the native reader built, its
+                  read byte-equal to the Python read, both timed;
+   each of 33-37 prints ms, device ms (a profile), launches, peak memory
    and the card's name and power limit;
-37. timings       each kernel, its plain version and PyTorch's
+38. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
                   backward where it takes the head_dim (d <= 256), beside
@@ -360,6 +375,10 @@ PER_STEP = {
     "super_resolution": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "owlvit_loss": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "glide_clip": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # StyleGAN-XL's synthesis has no attention; CLIP ViT-B/32 attends over 50
+    # tokens: per optimizer step, and per forward + backward of ffhq256
+    "stylegan_xl_optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "stylegan_xl_ffhq256": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -530,6 +549,12 @@ OWLVIT_STEPS = 5
 OWLVIT_RAW_SIZE = 256
 GLIDE_BATCH = 4
 GLIDE_TIMESTEPS = (0, 250, 500, 999)
+# StyleGAN-XL: the class-conditional ImageNet generator optimized under CLIP,
+# the unconditional FFHQ one forward and backward at batch 2
+STYLEGAN_NAME = "imagenet128"
+STYLEGAN_UNCOND_NAME = "ffhq256"
+STYLEGAN_STEPS = 10
+STYLEGAN_LR = 0.05
 # `optimize` and `run_on_device` do the same arithmetic in the same order
 RUN_ON_DEVICE_ATOL = 1e-6
 # the JPEG decode on the card against the CPU's, same coefficients, fp32
@@ -3244,6 +3269,182 @@ def phase_glide_clip(fa):
     return launches, measured
 
 
+def write_safetensors(path, tensors) -> None:
+    """{name: fp32 CPU tensor} -> a safetensors file, its header written
+    here (no package): the 8-byte little-endian header length, the JSON
+    header padded with spaces to 8 bytes, then each tensor's bytes in
+    order."""
+    import struct
+
+    import torch
+
+    header, offset, blobs = {}, 0, []
+    for name, tensor in tensors.items():
+        if tensor.dtype != torch.float32:
+            raise ValueError(f"write_safetensors writes F32 only, not {tensor.dtype} ({name})")
+        data = tensor.contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(tensor.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)) + text)
+        for data in blobs:
+            f.write(data)
+
+
+def stylegan_checkpoints(model, latents, images) -> dict:
+    """`model`'s generator state_dict written as a torch `.pt`, a
+    `{'G_ema': module}` `.pkl` (stdlib pickle), an `.npz` and a hand-written
+    `.safetensors` in a temporary directory; each read through
+    `utils.checkpoints.load_state_dict` into a fresh wrapper whose weights
+    were zeroed first: its images of `latents` bitwise equal to `images`.
+    The native reader must have built; its read of the safetensors payload
+    byte-equal to the Python read. Read and load times in ms."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from perceptor_tpu_torch.models import stylegan_xl
+    from perceptor_tpu_torch.utils import checkpoints, native_io
+
+    if not native_io.native_available():
+        raise AssertionError(f"native reader did not build: {native_io.build_error()}")
+    sd = {k: v.detach().cpu() for k, v in model.generator.state_dict().items()}
+    fresh = stylegan_xl.StyleGANXL.__wrapped__(model.name)
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {fmt: f"{tmp}/stylegan_xl_{model.name}{fmt}"
+                 for fmt in (".pt", ".pkl", ".npz", ".safetensors")}
+        torch.save(sd, paths[".pt"])
+        with open(paths[".pkl"], "wb") as f:
+            pickle.dump({"G_ema": model.generator}, f)
+        np.savez(paths[".npz"], **{k: v.numpy() for k, v in sd.items()})
+        write_safetensors(paths[".safetensors"], sd)
+        for fmt, path in paths.items():
+            with torch.no_grad():
+                for tensor in fresh.generator.parameters():
+                    tensor.zero_()
+            t0 = time.perf_counter()
+            loaded = checkpoints.load_state_dict(path)
+            read_ms = (time.perf_counter() - t0) * 1e3
+            fresh.load_state_dict(loaded)
+            with torch.no_grad():
+                again = fresh(latents)
+            if not torch.equal(again, images):
+                raise AssertionError(f"stylegan_xl checkpoint {fmt}: images differ after loading")
+            record[fmt] = {"bytes": os.path.getsize(path), "read_ms": read_ms}
+        size = os.path.getsize(paths[".safetensors"])
+        t0 = time.perf_counter()
+        native = native_io.read_span(paths[".safetensors"], 0, size)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        python = native_io.read_span_python(paths[".safetensors"], 0, size)
+        python_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(native, python):
+            raise AssertionError("stylegan_xl: native read_span differs from the Python read")
+    del fresh
+    return {"formats": record, "native_available": True, "read_span_bytes": size,
+            "read_span_native_ms": native_ms, "read_span_python_ms": python_ms,
+            "bitwise_equal_images": True}
+
+
+def phase_stylegan_xl_optimize(fa):
+    """`models.StyleGANXL(STYLEGAN_NAME)` (bf16 synthesis, JAX's seed-0
+    weights) on the card, `latents(1, seeds=[0])` into `drawers.StyleGANXL`,
+    STYLEGAN_STEPS Adam steps (lr STYLEGAN_LR) of `engine.run_on_device`
+    under `losses.CLIP("ViT-B-32")` to a random target: the loss falls, no
+    flash launch, finite images (1, 3, 128, 128), a second run bitwise
+    equal, the bf16 image within TEXT_BF16_RTOL of an fp32 build's, a
+    profiled step; then `StyleGANXL(STYLEGAN_UNCOND_NAME)`'s `latents(2)`
+    forward and backward to the latents; then the checkpoint round trip
+    (`stylegan_checkpoints`). Returns ({path: launches}, {path: launches
+    per step})."""
+    import torch
+
+    from perceptor_tpu_torch import drawers, engine, losses, models
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    model = models.StyleGANXL(STYLEGAN_NAME)
+    loss = random_target(losses.CLIP(CLIP_NAME), seed=1)
+    latents = model.latents(1, seeds=[0])
+    drawer = drawers.StyleGANXL(model=model, latents=latents)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=STYLEGAN_LR)
+
+    record = dip_run(fa, "stylegan_xl_optimize", drawer, loss, STYLEGAN_STEPS, adam)
+    _, again = engine.run_on_device(drawer, [loss], drawer.params, STYLEGAN_STEPS, optimizer=adam)
+    if again.tolist() != record["history"]:
+        raise AssertionError(f"stylegan_xl_optimize: two runs differ: {record['history']} vs "
+                             f"{again.tolist()}")
+    if not record["history"][-1] < record["history"][0]:
+        raise AssertionError(f"stylegan_xl_optimize: loss did not fall: {record['history']}")
+    with torch.no_grad():
+        images = drawer.synthesize()
+        fp32 = models.StyleGANXL(STYLEGAN_NAME, dtype=torch.float32)
+        err = check_bf16_against_fp32("stylegan_xl_optimize", images, fp32(latents))
+    del fp32
+    size = model.config.synthesis.img_resolution
+    if tuple(images.shape) != (1, 3, size, size):
+        raise AssertionError(f"stylegan_xl_optimize: images {tuple(images.shape)}")
+    record["profile"] = profile_record(engine.make_guidance_step(drawer, [loss], adam))
+    emit({"phase": "stylegan_xl_optimize", "ok": True, "card": card, "model": STYLEGAN_NAME,
+          "lr": STYLEGAN_LR, "latent_shape": list(latents.shape),
+          "parameters": sum(p.numel() for p in model.generator.parameters()),
+          "build_s": build_s, "repeat_bitwise_equal": True, "images_shape": list(images.shape),
+          "bf16_vs_fp32_rel_l2": err, "tol": TEXT_BF16_RTOL, **record,
+          "seconds": time.perf_counter() - t0})
+    launches, measured = ({"stylegan_xl_optimize": record["launches"]},
+                          {"stylegan_xl_optimize": record["launches_per_step"]})
+    del drawer
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    uncond = models.StyleGANXL(STYLEGAN_UNCOND_NAME)
+    ws = uncond.latents(2).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fwd_bwd():
+        out = uncond(ws)
+        grad, = torch.autograd.grad(out.square().mean(), ws)
+        return out, grad
+
+    fwd_bwd()  # warm-up
+    fa.reset_launches()
+    (out, grad), ms = timed_ms(fwd_bwd)
+    ffhq_launches = dict(fa.LAUNCHES)
+    check_per_step("stylegan_xl_ffhq256", per_step(ffhq_launches, 1))
+    size = uncond.config.synthesis.img_resolution
+    if not (tuple(out.shape) == (2, 3, size, size) and torch_finite(out) and torch_finite(grad)
+            and float(grad.abs().max()) > 0):
+        raise AssertionError(f"stylegan_xl_ffhq256: output {tuple(out.shape)} or gradient off")
+    emit({"phase": "stylegan_xl_ffhq256", "ok": True, "card": card, "model": STYLEGAN_UNCOND_NAME,
+          "latent_shape": list(ws.shape), "images_shape": list(out.shape), "fwd_bwd_ms": ms,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": ffhq_launches,
+          "profile": profile_summary(fwd_bwd), "seconds": time.perf_counter() - t0})
+    launches["stylegan_xl_ffhq256"] = ffhq_launches
+    measured["stylegan_xl_ffhq256"] = per_step(ffhq_launches, 1)
+    del uncond, ws, out, grad
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        images = model(latents)
+    emit({"phase": "stylegan_xl_checkpoints", "ok": True, "card": card, "model": STYLEGAN_NAME,
+          **stylegan_checkpoints(model, latents, images), "seconds": time.perf_counter() - t0})
+    return launches, measured
+
+
 def phase_timings(fa, peak_flops, peak_bw) -> list:
     """Kernel, plain version, SDPA and the fused flash backward per site,
     and the bound."""
@@ -3511,6 +3712,11 @@ def main() -> int:
         path = phase.__name__.removeprefix("phase_")
         launches[path], measured[path] = phase(fa)
         torch.cuda.empty_cache()
+    # StyleGAN-XL: the drawer under CLIP, ffhq256, the checkpoint readers
+    stylegan_launches, stylegan_measured = phase_stylegan_xl_optimize(fa)
+    launches.update(stylegan_launches)
+    measured.update(stylegan_measured)
+    torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, measured, errors)}))

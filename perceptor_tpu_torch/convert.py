@@ -25,15 +25,15 @@ x-transformer's (BERT), torchvision's (the VGG, AlexNet, SqueezeNet and
 ResNet trunks), lpips' (its heads), ResMem's, gen-efficientnet's, the
 AdaBins repository's, MiDaS's (timm's ViT inside), SLIP's, BLIP's (timm
 and HF-BERT), cloob-training's, LiT's, basicsr's (Real-ESRGAN), HF
-OWL-ViT's and GLIDE's, so the JAX package's
+OWL-ViT's, GLIDE's and StyleGAN-XL's, so the JAX package's
 own `unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the three
 `from_torch`, `convert_bert`, `convert_torchvision_features`,
 `convert_resnet`, `convert_resmem`, `convert_efficientnet`,
 `convert_adabins`, `convert_dpt`, `convert_midas_net`,
 `convert_midas_net_small`, `convert_slip`, `convert_blip`, `convert_cloob`,
 `convert_lit`, `convert_rrdbnet`, `convert_srvgg`,
-`convert_unet_discriminator`, `convert_owlvit`, `convert_glide_text` and
-`convert_glide_image` map these state_dicts back to the same trees.
+`convert_unet_discriminator`, `convert_owlvit`, `convert_glide_text`,
+`convert_glide_image` and `convert_stylegan_xl` map these state_dicts back to the same trees.
 
 One map is torch to torch: `open_clip_state_dict_from_hf` takes an HF
 `transformers` CLIPModel state_dict to the port's open_clip names.
@@ -60,6 +60,7 @@ from perceptor_tpu_torch.models.monster_diffusion.net import MonsterConfig
 from perceptor_tpu_torch.models.owlvit import OWLViTConfig
 from perceptor_tpu_torch.models.slip import SLIPConfig
 from perceptor_tpu_torch.models.stable_diffusion.config import TextConfig, UNetConfig, VAEConfig
+from perceptor_tpu_torch.models.stylegan_xl import params_state_dict
 from perceptor_tpu_torch.models.velocity_diffusion.configs import VNetConfig
 from perceptor_tpu_torch.models.vgg import VGG16_CFG, VGG19_CFG
 from perceptor_tpu_torch.models.vgg import _layers as vgg_layers
@@ -1063,3 +1064,11 @@ def glide_clip_state_dict_from_jax(params: Mapping, cfg: GlideCLIPConfig) -> Dic
     _glide_ln(image["embed_ln"], "blocks.input.ln", image_sd)
     _glide_tower(image, cfg.image_blocks, image_sd)
     return {"text": text_sd, "image": image_sd}
+
+
+def stylegan_xl_state_dict_from_jax(params: Mapping, cfg) -> StateDict:
+    """The JAX `StyleGANXLGenerator` params ({input, L*, mapping}) under
+    `GeneratorConfig` `cfg` -> the port generator's state_dict, the designed
+    filters included; the inverse of `convert_stylegan_xl`. The map lives
+    beside the model, whose random init loads through it."""
+    return params_state_dict(params, cfg)

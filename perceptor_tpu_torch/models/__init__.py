@@ -1,8 +1,6 @@
 """Frozen model wrappers (counterpart of perceptor_tpu/models/__init__.py).
 
-Lazy imports keep `import perceptor_tpu_torch.models` cheap. A wrapper of
-the JAX package that is not ported yet raises an AttributeError that says
-so; ROADMAP.md queue A lists the order in which they come.
+Lazy imports keep `import perceptor_tpu_torch.models` cheap.
 """
 
 _EXPORTS = {
@@ -28,11 +26,10 @@ _EXPORTS = {
     "SuperResolution": ("perceptor_tpu_torch.models.super_resolution", "SuperResolution"),
     "OWLViT": ("perceptor_tpu_torch.models.owlvit", "OWLViT"),
     "GlideCLIP": ("perceptor_tpu_torch.models.glide_clip", "GlideCLIP"),
+    "StyleGANXL": ("perceptor_tpu_torch.models.stylegan_xl", "StyleGANXL"),
     # the subpackage itself (Text2Image, Face, SuperResolution, ...)
     "latent_diffusion": ("perceptor_tpu_torch.models.latent_diffusion", None),
 }
-
-_NOT_PORTED = ("StyleGANXL",)
 
 __all__ = list(_EXPORTS)
 
@@ -46,8 +43,4 @@ def __getattr__(name):
         value = module if attr is None else getattr(module, attr)
         globals()[name] = value
         return value
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"perceptor_tpu_torch.models.{name} is not ported yet (ROADMAP.md queue A)"
-        )
     raise AttributeError(f"module 'perceptor_tpu_torch.models' has no attribute {name!r}")

@@ -307,9 +307,11 @@ def test_moved_names_resolve_and_the_rest_still_raise():
     assert (models.GlideCLIP, models.OWLViT, models.SuperResolution) == (
         GlideCLIP, OWLViT, SuperResolution)
     assert losses.OWLViT is OWLViTLoss and drawers.BruteRuDalle is BruteRuDalle
-    for package, name in ((models, "StyleGANXL"), (drawers, "StyleGANXL")):
-        with pytest.raises(AttributeError, match="not ported yet"):
-            getattr(package, name)
+    from perceptor_tpu_torch.drawers import stylegan_xl as drawer_module
+    from perceptor_tpu_torch.models import stylegan_xl as model_module
+
+    assert models.StyleGANXL is model_module.StyleGANXL
+    assert drawers.StyleGANXL is drawer_module.StyleGANXL
 
 
 def test_ensemble_guided_sample_matches_jax():

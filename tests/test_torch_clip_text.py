@@ -258,6 +258,6 @@ def test_clip_alias_applies_the_quickgelu_fixup():
             get_config(name), quick_gelu=False)
     from perceptor_tpu_torch.models.glide_clip import GlideCLIP
 
-    assert models.GlideCLIP is GlideCLIP
-    with pytest.raises(AttributeError, match="not ported yet"):
-        models.StyleGANXL
+    from perceptor_tpu_torch.models.stylegan_xl import StyleGANXL
+
+    assert models.GlideCLIP is GlideCLIP and models.StyleGANXL is StyleGANXL

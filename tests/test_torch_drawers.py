@@ -159,6 +159,10 @@ def test_jpeg_drawer_matches_jax():
 def test_a_drawer_that_is_not_ported_says_so():
     from perceptor_tpu_torch.drawers.rudalle import BruteRuDalle
 
-    assert drawers.BruteRuDalle is BruteRuDalle
-    with pytest.raises(AttributeError, match="not ported yet.*ROADMAP"):
-        drawers.StyleGANXL
+    from perceptor_tpu_torch.drawers.stylegan_xl import StyleGANXL
+
+    # every drawer of the JAX package is ported: the last one resolves, and
+    # a name that is no drawer raises as any missing attribute does
+    assert drawers.BruteRuDalle is BruteRuDalle and drawers.StyleGANXL is StyleGANXL
+    with pytest.raises(AttributeError, match="has no attribute 'NoSuchDrawer'"):
+        drawers.NoSuchDrawer

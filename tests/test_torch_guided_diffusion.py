@@ -315,8 +315,11 @@ def test_what_is_not_ported_says_so_and_cuda_is_the_default():
 
     assert models.SuperResolution is SuperResolution
     assert models.latent_diffusion.SuperResolution is not SuperResolution
-    with pytest.raises(AttributeError, match="not ported yet.*ROADMAP"):
-        models.StyleGANXL
+    from perceptor_tpu_torch.models.stylegan_xl import StyleGANXL
+
+    assert models.StyleGANXL is StyleGANXL
+    with pytest.raises(AttributeError, match="has no attribute 'NoSuchModel'"):
+        models.NoSuchModel
     with pytest.raises(ValueError, match="Unknown model name"):
         GuidedDiffusion("huge", device="cpu")
     assert models.GuidedDiffusion is GuidedDiffusion

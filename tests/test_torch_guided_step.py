@@ -178,7 +178,11 @@ def test_port_imports_no_jax():
         "             'utils.profiling', 'utils.bench_env', 'core.remat', 'models.dual_encoder',\n"
         "             'models.slip', 'models.blip', 'models.cloob', 'models.lit', 'models.ruclip',\n"
         "             'losses.slip', 'losses.blip', 'losses.cloob', 'losses.lit', 'losses.ruclip',\n"
-        "             'ops.deform_conv', 'models.deep_image_prior', 'drawers.deep_image_prior'):\n"
+        "             'ops.deform_conv', 'models.deep_image_prior', 'drawers.deep_image_prior',\n"
+        "             'ops.fma', 'ops.bias_act', 'ops.gradfix', 'ops.filtered_lrelu',\n"
+        "             'ops.conv2d_resample', 'ops.grid_sample', 'models.stylegan_xl',\n"
+        "             'drawers.stylegan_xl', 'utils.checkpoints', 'utils.native_io',\n"
+        "             'utils.pil_image'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
@@ -192,6 +196,11 @@ def test_port_imports_no_jax():
         "models.SLIP, models.BLIP, models.CLOOB, models.LiT, models.RuCLIP, models.DeepImagePrior\n"
         "losses.SLIP, losses.BLIP, losses.CLOOB, losses.LiT, losses.RuCLIP\n"
         "drawers.DeepImagePrior, perceptor_tpu_torch.ops.deform_conv2d\n"
+        "models.StyleGANXL, drawers.StyleGANXL, utils.pil_image\n"
+        "o = perceptor_tpu_torch.ops\n"
+        "o.bias_act, o.filtered_lrelu, o.conv2d_resample, o.grid_sample, o.flow_warp, o.fma\n"
+        "from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_state_dict\n"
+        "from perceptor_tpu_torch.utils.native_io import native_available, read_span\n"
         "from perceptor_tpu_torch.models.stable_diffusion import Conditioning\n"
         "ld = models.latent_diffusion\n"
         "ld.Text2Image, ld.Face, ld.SuperResolution, ld.VQModel, ld.VectorQuantizer\n"
