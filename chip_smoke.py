@@ -228,6 +228,35 @@ exits non-zero without a result line:
                   read byte-equal to the Python read, both timed;
    each of 33-37 prints ms, device ms (a profile), launches, peak memory
    and the card's name and power limit;
+   serving_sample  (after guided_sample) `StableDiffusion.export_sample` at
+                  512px, DDIM and dpm++, 1 step: exported through
+                  `torch.export`, serialized, loaded back and run against
+                  the live `sample_loop` on the same context and latents
+                  (bitwise, or gated at 1e-3); the loaded program's launches
+                  per UNet evaluation held to `sample`'s 10 / 0 / 0 plus the
+                  decode's; export and load seconds, artifact bytes against
+                  the weights', ms an image loaded and live;
+   serving_guided_sample  `engine.export_guided_sample` over the same model
+                  under the guided step's CLIP loss, 1 step without CFG:
+                  the flash ops as graph nodes, 11 / 11 / 11 launches a step,
+                  latents and losses against the live `guided_sample`;
+   training_stats a `utils.stats.Collector` over the guided runs' losses, its mean and
+                  std against numpy's; serving_conditioning, the text
+                  encoder's program against the live encoder;
+   session_resume  (after optimize_jpeg) a 256px `Raw` under Adam and the
+                  CLIP loss on random cutouts: 6 steps straight against 3,
+                  `save_session`, fresh objects, `load_session` and 3 more,
+                  losses and pixels bitwise; `SessionManager` (async,
+                  interval 2, two kept) over the same run, its restore
+                  bitwise the run's state;
+   serving_velocity  (after velocity_sample) yfcc_2's `export_sample`, 1
+                  step, against the live sampler, no flash launch;
+   checkpoint_discovery  (after stylegan_xl) OpenCLIP ViT-B/32's weights as
+                  an open_clip-layout file, converted by the port's CLI into
+                  a temporary cache directory, found by a fresh
+                  `OpenCLIP("ViT-B-32", "laion2b_s34b_b79k")`: embeddings
+                  bitwise those of the model that wrote the file; the CLI's
+                  and the load's seconds;
 38. timings       each kernel, its plain version and PyTorch's
                   scaled_dot_product_attention at each site (and the
                   forward at the batch-2 sites), PyTorch's fused flash
@@ -237,7 +266,8 @@ exits non-zero without a result line:
                   not the host's.
 
 Each phase measures its launches per step and holds them against the one
-table PER_STEP. Then the kernel table as one JSON line (launches of every
+table PER_STEP. Then the script's seconds (`total`), the kernel table as one
+JSON line (launches of every
 main-path run and measured launches per step, by entry point) and, last,
 the device line. Exits non-zero with no result when
 CUDA is not available.
@@ -379,6 +409,18 @@ PER_STEP = {
     # tokens: per optimizer step, and per forward + backward of ffhq256
     "stylegan_xl_optimize": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "stylegan_xl_ffhq256": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # the loaded torch.export programs (SD's `export_sample` is held to
+    # `sample`'s row per batched CFG UNet evaluation, the decode apart):
+    # `export_guided_sample` over SD without CFG, per step: one B = 1 UNet
+    # evaluation and the decode, forward and backward (the guided step's);
+    # the text-conditioning program (a masked S = 77 tower) and yfcc_2's
+    # sampler (attention at 16 x 16 tokens and below) launch none
+    "serving_guided_sample": {"flash_fwd": 11, "flash_dq": 11, "flash_dkv": 11},
+    "serving_conditioning": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "serving_velocity": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    # the session and discovery phases: CLIP ViT-B/32's 50 tokens
+    "session_resume": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
+    "checkpoint_discovery": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
@@ -556,6 +598,18 @@ STYLEGAN_UNCOND_NAME = "ffhq256"
 STYLEGAN_STEPS = 10
 STYLEGAN_LR = 0.05
 # `optimize` and `run_on_device` do the same arithmetic in the same order
+# serving (torch.export programs), sessions, training stats and checkpoint
+# discovery: the steps are kept few, since each step of a program is traced
+# into its graph
+SERVING_STEPS = 1
+SERVING_GUIDED_STEPS = 1
+SERVING_VELOCITY_MODEL = "yfcc_2"
+SERVING_ATOL = 1e-3
+SESSION_STEPS = 6
+SESSION_CUTOUTS = 8
+DISCOVERY_WEIGHTS = "laion2b_s34b_b79k"
+STATS_RTOL = 1e-6
+PR14_SECONDS = 236.4
 RUN_ON_DEVICE_ATOL = 1e-6
 # the JPEG decode on the card against the CPU's, same coefficients, fp32
 JPEG_DECODE_ATOL = 1e-4
@@ -1237,7 +1291,7 @@ def phase_guided_sample(fa, sd, step):
     the loss the guided step's prompt-bank loss (CLIP ViT-B/32, spherical
     distance to its fixed target), for GUIDED_SAMPLE_STEPS steps: finite latents and losses, 21
     launches of each kernel a step, ms per step and peak memory. Returns
-    (launches, launches per step)."""
+    (launches, launches per step, the per-step losses)."""
     import torch
 
     from perceptor_tpu_torch.engine import guided_sample
@@ -1271,7 +1325,7 @@ def phase_guided_sample(fa, sd, step):
         "wall_s": wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches, "launches_per_step": measured,
     })
-    return launches, measured
+    return launches, measured, losses
 
 
 def text_loss(prompts=TEXT_PROMPTS[:1]):
@@ -3445,6 +3499,382 @@ def phase_stylegan_xl_optimize(fa):
     return launches, measured
 
 
+def _weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for tensors in params.values()
+               for t in tensors.values())
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase_serving_sample(fa, sd):
+    """SD's `export_sample` at 512px (DDIM and dpm++, SERVING_STEPS steps,
+    CFG 7): exported, serialized, loaded back and run on the live
+    `sample_loop`'s context and latents. Per method: the images against the
+    live ones (bitwise, or gated at SERVING_ATOL), the flash launches of the
+    loaded program per UNet evaluation against PER_STEP["serving_sample"]
+    (the decode's PER_VAE_CALL apart; `sample`'s row), export and load seconds, artifact
+    bytes against the weights', and ms an image of the loaded program and of
+    the live sampler. Returns (launches, launches per UNet evaluation)."""
+    import torch
+
+    from perceptor_tpu_torch.utils import serving
+
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    context2 = torch.cat([sd.conditioning([""]), sd.conditioning([PROMPT])])
+    latents = sd.random_diffused_latents((1, *size), torch.Generator("cuda").manual_seed(4))
+    scale = torch.tensor(CFG_SCALE, device="cuda")
+    pairs = sd.schedule_indices(SERVING_STEPS)
+    totals = {name: 0 for name in REPLACES}
+    runs = []
+    for method in ("ddim", "dpm++"):
+        t0 = time.perf_counter()
+        blob = sd.export_sample(batch=1, size=size, n_steps=SERVING_STEPS, method=method)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = serving.load_program(blob)
+        load_s = time.perf_counter() - t0
+        noise = torch.zeros(sd.sample_noise_shape(1, size, SERVING_STEPS), device="cuda")
+
+        def served_run():
+            return program(sd.params, context2, latents, noise, scale)
+
+        def live_run():
+            return sd.decode(sd.sample_loop(latents, pairs, context2[:1], context2[1:],
+                                            CFG_SCALE, method=method))
+
+        served_run(), live_run()  # warm-up
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        served, served_ms = timed_ms(served_run)
+        launches = dict(fa.LAUNCHES)
+        live, live_ms = timed_ms(live_run)
+        loop = {k: launches[k] - PER_VAE_CALL[k] for k in launches}
+        measured = per_step(loop, len(pairs))
+        check_per_step("sample", measured)
+        diff = _max_diff(served, live)
+        if tuple(served.shape) != (1, 3, *size) or not torch.isfinite(served).all():
+            raise AssertionError(f"serving_sample {method}: images {tuple(served.shape)}")
+        if not diff <= SERVING_ATOL:
+            raise AssertionError(f"serving_sample {method}: loaded program {diff} off the live")
+        for kernel in totals:
+            totals[kernel] += launches[kernel]
+        runs.append({
+            "method": method, "steps": len(pairs), "export_s": export_s, "load_s": load_s,
+            "artifact_bytes": len(blob), "weight_bytes": _weight_bytes(sd.params),
+            "bitwise": bool(torch.equal(served, live)), "max_abs_diff": diff,
+            "tol": SERVING_ATOL, "loaded_ms_per_image": served_ms,
+            "live_ms_per_image": live_ms, "launches": launches,
+            "launches_per_unet_eval": measured,
+        })
+        del program, blob
+    emit({"phase": "serving_sample", "ok": True, "model": MODEL, "runs": runs})
+    return totals, measured
+
+
+def phase_serving_guided_sample(fa, sd, step):
+    """`engine.export_guided_sample` over SD at 512px under the guided step's
+    CLIP ViT-B/32 prompt-bank loss, SERVING_GUIDED_STEPS steps without CFG:
+    loaded back and run against the live `guided_sample` on the same
+    latents (latents and losses bitwise, or gated at SERVING_ATOL), its
+    launches per step against PER_STEP["serving_guided_sample"]. Returns
+    (launches, launches per step, the loaded program's per-step losses)."""
+    import io
+
+    import torch
+
+    from perceptor_tpu_torch.engine import export_guided_sample, guided_noise_shape, guided_sample
+    from perceptor_tpu_torch.utils import serving
+
+    cond = sd.conditioning([PROMPT])
+    latents = sd.random_diffused_latents((1, IMAGE_SIZE, IMAGE_SIZE),
+                                         torch.Generator("cuda").manual_seed(5))
+    pairs = sd.schedule_indices(SERVING_GUIDED_STEPS)
+    loss = step.clip_loss
+    t0 = time.perf_counter()
+    blob = export_guided_sample(sd, [loss], latents, pairs, cond)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = serving.load_program(blob)
+    load_s = time.perf_counter() - t0
+    args = (sd.params, latents, torch.as_tensor(pairs, device="cuda"),
+            [serving.object_params(loss)], cond,
+            torch.zeros(guided_noise_shape(latents, len(pairs)), device="cuda"),
+            torch.tensor(0.5, device="cuda"), torch.tensor(0.0, device="cuda"))
+    program(*args)  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    (served, served_losses), served_ms = timed_ms(lambda: program(*args))
+    launches = dict(fa.LAUNCHES)
+    measured = per_step(launches, len(pairs))
+    check_per_step("serving_guided_sample", measured)
+    (live, live_losses), live_ms = timed_ms(
+        lambda: guided_sample(sd, [loss], latents, pairs, cond, guidance_scale=0.5))
+    diffs = {"latents": _max_diff(served, live), "losses": _max_diff(served_losses, live_losses)}
+    if not (torch.isfinite(served).all() and torch.isfinite(served_losses).all()):
+        raise AssertionError("serving_guided_sample: non-finite latents or losses")
+    if not all(d <= SERVING_ATOL for d in diffs.values()):
+        raise AssertionError(f"serving_guided_sample: loaded program off the live by {diffs}")
+    graph_ops = sorted({str(n.target) for n in torch.export.load(io.BytesIO(blob)).graph.nodes
+                        if "perceptor_tpu_torch" in str(n.target)})
+    emit({
+        "phase": "serving_guided_sample", "ok": True, "steps": len(pairs),
+        "export_s": export_s, "load_s": load_s, "artifact_bytes": len(blob),
+        "weight_bytes": _weight_bytes(sd.params), "graph_flash_ops": graph_ops,
+        "bitwise": bool(torch.equal(served, live) and torch.equal(served_losses, live_losses)),
+        "max_abs_diff": diffs, "tol": SERVING_ATOL, "losses": served_losses.tolist(),
+        "loaded_ms_per_step": served_ms / len(pairs), "live_ms_per_step": live_ms / len(pairs),
+        "launches": launches, "launches_per_step": measured,
+    })
+    return launches, measured, served_losses
+
+
+def phase_training_stats(losses) -> None:
+    """A `utils.stats.Collector` over the guided runs' per-step losses (the
+    live CFG run's and the loaded program's), reported on the device one
+    step at a time: its num, mean and std against numpy's float64 ones."""
+    import numpy as np
+
+    from perceptor_tpu_torch.utils import stats
+
+    bag = stats.zeros(["guided/loss"], device=losses.device)
+    collector = stats.Collector(regex="guided/.*")
+    for value in losses:
+        bag = stats.report(bag, "guided/loss", value)
+    collector.update(stats.all_reduce(bag))
+    want = losses.double().cpu().numpy()
+    got = collector.as_dict()["guided/loss"]
+    if got["num"] != want.size or not (
+            np.isclose(got["mean"], want.mean(), rtol=STATS_RTOL)
+            and np.isclose(got["std"], want.std(), rtol=STATS_RTOL, atol=1e-7)):
+        raise AssertionError(f"training_stats: {got} against numpy's {want.mean(), want.std()}")
+    emit({"phase": "training_stats", "ok": True, **got, "numpy_mean": float(want.mean()),
+          "numpy_std": float(want.std()), "rtol": STATS_RTOL})
+
+
+def phase_serving_conditioning(fa, sd):
+    """SD's `export_conditioning` (the text encoder, uncond and cond) loaded
+    back against the live encoder; no flash launch."""
+    import torch
+
+    from perceptor_tpu_torch.models.clip.tokenizer import tokenize
+    from perceptor_tpu_torch.utils import serving
+
+    t0 = time.perf_counter()
+    blob = sd.export_conditioning(batch=1)
+    export_s = time.perf_counter() - t0
+    program = serving.load_program(blob)
+    tokens = torch.from_numpy(tokenize(["", PROMPT], sd.text_config.context_length,
+                                       tokenizer=sd.tokenizer)).to("cuda")
+    program(sd.params, tokens)  # warm-up
+    fa.reset_launches()
+    served, served_ms = timed_ms(lambda: program(sd.params, tokens))
+    launches = dict(fa.LAUNCHES)
+    check_per_step("serving_conditioning", launches)
+    live, live_ms = timed_ms(lambda: sd.text_encoder(tokens))
+    diff = _max_diff(served, live)
+    if not diff <= SERVING_ATOL:
+        raise AssertionError(f"serving_conditioning: {diff} off the live encoder")
+    emit({"phase": "serving_conditioning", "ok": True, "export_s": export_s,
+          "artifact_bytes": len(blob), "weight_bytes": _weight_bytes(sd.params),
+          "bitwise": bool(torch.equal(served, live)), "max_abs_diff": diff,
+          "loaded_ms": served_ms, "live_ms": live_ms, "launches": launches})
+    return launches, launches
+
+
+def phase_serving_velocity(fa):
+    """`VelocityDiffusion(SERVING_VELOCITY_MODEL).export_sample` (DDIM,
+    SERVING_STEPS steps) loaded back against the live `sample_loop`; no
+    flash launch."""
+    import torch
+
+    from perceptor_tpu_torch.models.velocity_diffusion import VelocityDiffusion
+    from perceptor_tpu_torch.utils import serving
+
+    vd = VelocityDiffusion(SERVING_VELOCITY_MODEL, device="cuda", seed=0)
+    t0 = time.perf_counter()
+    blob = vd.export_sample(n_images=1, n_steps=SERVING_STEPS)
+    export_s = time.perf_counter() - t0
+    program = serving.load_program(blob)
+    diffused = vd.random_diffused((1, *vd.shape), torch.Generator("cuda").manual_seed(6))
+    pairs = torch.as_tensor(vd.schedule_ts(SERVING_STEPS), device="cuda")
+    noise = torch.zeros(vd.sample_noise_shape(1, vd.shape, SERVING_STEPS), device="cuda")
+    zero = torch.tensor(0.0, device="cuda")
+    cond = (torch.zeros((1, vd.config.mapping.clip_dim), device="cuda")
+            if vd.conditioned else None)
+    program(vd.params, diffused, pairs, cond, noise, zero, zero)  # warm-up
+    fa.reset_launches()
+    served, served_ms = timed_ms(lambda: program(vd.params, diffused, pairs, cond, noise, zero,
+                                                 zero))
+    launches = dict(fa.LAUNCHES)
+    check_per_step("serving_velocity", launches)
+    live, live_ms = timed_ms(lambda: vd.sample_loop(diffused, pairs, cond))
+    diff = _max_diff(served, live)
+    if not (torch.isfinite(served).all() and diff <= SERVING_ATOL):
+        raise AssertionError(f"serving_velocity: {diff} off the live sampler")
+    emit({"phase": "serving_velocity", "ok": True, "model": SERVING_VELOCITY_MODEL,
+          "shape": list(vd.shape), "steps": SERVING_STEPS, "export_s": export_s,
+          "artifact_bytes": len(blob), "weight_bytes": _weight_bytes(vd.params),
+          "bitwise": bool(torch.equal(served, live)), "max_abs_diff": diff,
+          "loaded_ms_per_image": served_ms, "live_ms_per_image": live_ms,
+          "launches": launches})
+    return launches, launches
+
+
+def phase_session_resume(fa):
+    """A Raw drawer at RAW_SIZE under Adam and the CLIP text loss on
+    SESSION_CUTOUTS random cutouts from its own generator: SESSION_STEPS
+    steps straight against half of them, `save_session`, a fresh drawer,
+    optimizer and generator, `load_session` and the other half (losses and
+    pixels bitwise); then `SessionManager` (async, interval 2, two kept)
+    over the same run, its latest restore bitwise the straight run's state
+    at that step. Returns (launches, launches per step)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from perceptor_tpu_torch import drawers, engine, transforms
+    from perceptor_tpu_torch.utils import SessionManager, load_session, save_session
+
+    loss = text_loss()
+    shape = (1, 3, RAW_SIZE, RAW_SIZE)
+
+    class Run:
+        def __init__(self, seed):
+            self.drawer = drawers.Raw.random_fractal_image(shape, seed=seed)
+            self.optimizer = torch.optim.Adam(self.drawer.parameters(), lr=0.05)
+            self.generator = torch.Generator("cuda").manual_seed(seed)
+            self.n = 0
+
+            def cutout_loss(images):
+                return loss(transforms.random_cutouts(images, self.generator, SESSION_CUTOUTS,
+                                                      cut_size=CUT_SIZE))
+
+            self.step = engine.make_guidance_step(self.drawer, [cutout_loss], self.optimizer)
+
+        def run(self, n, manager=None, snapshots=None):
+            out = []
+            for _ in range(n):
+                if manager is not None:
+                    manager.save(self.n, self.state())
+                if snapshots is not None:
+                    snapshots[self.n] = self.drawer.pixels.detach().clone()
+                out.append(self.step()["loss"])
+                self.n += 1
+            return out
+
+        def state(self):
+            return {"params": self.drawer.state_dict(),
+                    "opt_state": self.optimizer.state_dict(), "generator": self.generator,
+                    "step": self.n}
+
+        def restore(self, state):
+            self.drawer.load_state_dict(state["params"])
+            self.optimizer.load_state_dict(state["opt_state"])
+            self.n = state["step"]
+
+    half = SESSION_STEPS // 2
+    fa.reset_launches()
+    straight = Run(0)
+    snapshots = {}
+    want = torch.stack(straight.run(SESSION_STEPS, snapshots=snapshots))
+    launches = dict(fa.LAUNCHES)
+    check_per_step("session_resume", per_step(launches, SESSION_STEPS))
+    with tempfile.TemporaryDirectory() as tmp:
+        first = Run(0)
+        got = first.run(half)
+        t0 = time.perf_counter()
+        path = save_session(f"{tmp}/session.pt", first.state())
+        save_s = time.perf_counter() - t0
+        resumed = Run(1)
+        t0 = time.perf_counter()
+        resumed.restore(load_session(path, like=resumed.state()))
+        load_s = time.perf_counter() - t0
+        got = torch.stack(got + resumed.run(SESSION_STEPS - half))
+        if not (torch.equal(got, want) and torch.equal(resumed.drawer.pixels,
+                                                       straight.drawer.pixels)):
+            raise AssertionError("session_resume: the resumed run left the straight one by "
+                                 f"{_max_diff(got, want)}")
+        managed = Run(0)
+        with SessionManager(f"{tmp}/ckpt", max_to_keep=2, save_interval_steps=2,
+                            async_save=True) as manager:
+            managed.run(SESSION_STEPS, manager=manager)
+            manager.wait()
+            kept = manager.all_steps()
+            fresh = Run(2)
+            step, state = manager.restore_latest(fresh.state())
+            fresh.restore(state)
+        if kept != [SESSION_STEPS - 4, SESSION_STEPS - 2] or step != kept[-1]:
+            raise AssertionError(f"session_resume: SessionManager kept {kept}")
+        if not torch.equal(fresh.drawer.pixels, snapshots[step]):
+            raise AssertionError("session_resume: the manager's restore is not the run's state")
+        resumed_tail = torch.stack(fresh.run(SESSION_STEPS - step))
+        if not torch.equal(resumed_tail, want[step:]):
+            raise AssertionError("session_resume: the run resumed from the manager diverged")
+    emit({"phase": "session_resume", "ok": True, "image_size": RAW_SIZE,
+          "steps": SESSION_STEPS, "losses": want.tolist(), "bitwise": True,
+          "save_s": save_s, "load_s": load_s, "manager_kept": kept,
+          "launches": launches})
+    return launches, per_step(launches, SESSION_STEPS)
+
+
+def phase_checkpoint_discovery(fa):
+    """The full-width OpenCLIP ViT-B/32's state dict, written in open_clip's
+    layout, converted by the port's CLI into a temporary cache directory;
+    `OpenCLIP("ViT-B-32", DISCOVERY_WEIGHTS)` built past its memo finds the
+    artifact, and its image embeddings are bitwise those of the model that
+    wrote the file. Times the CLI and the load."""
+    import os
+    import tempfile
+
+    import torch
+
+    from perceptor_tpu_torch import convert
+    from perceptor_tpu_torch.models.open_clip import OpenCLIP
+    from perceptor_tpu_torch.utils import checkpoints
+
+    source = OpenCLIP.__wrapped__(CLIP_NAME, DISCOVERY_WEIGHTS, device="cuda", seed=11)
+    images = torch.rand((2, 3, 224, 224), generator=torch.Generator("cuda").manual_seed(7),
+                        device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        upstream = os.path.join(tmp, "open_clip_weights.pt")
+        torch.save(source.module.state_dict(), upstream)
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        saved = checkpoints.CACHE_DIRS
+        checkpoints.CACHE_DIRS = (cache,)
+        try:
+            name = f"{CLIP_NAME}/{DISCOVERY_WEIGHTS}"
+            t0 = time.perf_counter()
+            convert.main([upstream, "--family", "open-clip", "--name", name, "--out",
+                          os.path.join(cache, convert.canonical_basename("open-clip", name)),
+                          "--device", "cuda"])
+            cli_s = time.perf_counter() - t0
+            written = sorted(os.listdir(cache))
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            found = OpenCLIP.__wrapped__(CLIP_NAME, DISCOVERY_WEIGHTS, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            checkpoints.CACHE_DIRS = saved
+        artifact_bytes = os.path.getsize(os.path.join(cache, written[0]))
+    want, got = source.encode_images(images), found.encode_images(images)
+    launches = dict(fa.LAUNCHES)
+    check_per_step("checkpoint_discovery", launches)
+    if written != [f"open_clip_{CLIP_NAME}_{DISCOVERY_WEIGHTS}{checkpoints.PORT_SUFFIX}"]:
+        raise AssertionError(f"checkpoint_discovery: the CLI wrote {written}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"checkpoint_discovery: embeddings {_max_diff(got, want)} off")
+    emit({"phase": "checkpoint_discovery", "ok": True, "model": CLIP_NAME,
+          "weights": DISCOVERY_WEIGHTS, "artifact": written[0],
+          "artifact_bytes": artifact_bytes, "cli_s": cli_s, "load_s": load_s,
+          "bitwise": True, "launches": launches})
+    return launches, launches
+
+
 def phase_timings(fa, peak_flops, peak_bw) -> list:
     """Kernel, plain version, SDPA and the fused flash backward per site,
     and the bound."""
@@ -3608,6 +4038,7 @@ def main() -> int:
     from perceptor_tpu_torch.utils.bench_env import triton_imports
     from perceptor_tpu_torch.utils.flops import card_peaks
 
+    started = time.perf_counter()
     smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
@@ -3642,7 +4073,16 @@ def main() -> int:
     phase_sample_profile(sd)
     launches["sample_deepcache"], deepcache_measured = phase_sample_deepcache(fa, sd)
     measured.update(deepcache_measured)
-    launches["guided_sample"], measured["guided_sample"] = phase_guided_sample(fa, sd, step)
+    launches["guided_sample"], measured["guided_sample"], guided_losses = phase_guided_sample(
+        fa, sd, step)
+    # the torch.export programs over the same model, then the training stats
+    # over the loaded guided program's losses
+    launches["serving_sample"], measured["serving_sample"] = phase_serving_sample(fa, sd)
+    (launches["serving_guided_sample"], measured["serving_guided_sample"],
+     serving_losses) = phase_serving_guided_sample(fa, sd, step)
+    phase_training_stats(torch.cat([guided_losses, serving_losses]))
+    launches["serving_conditioning"], measured["serving_conditioning"] = (
+        phase_serving_conditioning(fa, sd))
     del sd
     torch.cuda.empty_cache()
     # SD inpainting; its guided phase shares the guided step's loss
@@ -3661,6 +4101,7 @@ def main() -> int:
     phase_optimize_raw(fa)
     phase_optimize_cutouts(fa)
     phase_optimize_jpeg(fa)
+    launches["session_resume"], measured["session_resume"] = phase_session_resume(fa)
     sd = StableDiffusion(MODEL, device="cuda", seed=0)
     launches["guided_sample_text"], measured["guided_sample_text"] = phase_guided_sample_text(fa, sd)
     del sd
@@ -3680,6 +4121,8 @@ def main() -> int:
     velocity_launches, velocity_measured = phase_velocity_sample(fa)
     launches.update(velocity_launches)
     measured.update(velocity_measured)
+    torch.cuda.empty_cache()
+    launches["serving_velocity"], measured["serving_velocity"] = phase_serving_velocity(fa)
     del clip
     torch.cuda.empty_cache()
     # the latent-diffusion family, one model at a time, then
@@ -3717,7 +4160,12 @@ def main() -> int:
     launches.update(stylegan_launches)
     measured.update(stylegan_measured)
     torch.cuda.empty_cache()
+    launches["checkpoint_discovery"], measured["checkpoint_discovery"] = (
+        phase_checkpoint_discovery(fa))
+    torch.cuda.empty_cache()
     rows = phase_timings(fa, peak_flops, peak_bw)
+    emit({"phase": "total", "seconds": time.perf_counter() - started,
+          "pr14_seconds": PR14_SECONDS})
 
     print(json.dumps({"kernels": kernel_table(rows, launches, measured, errors)}))
     print(json.dumps({"ok": True, "device": {

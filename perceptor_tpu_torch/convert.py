@@ -35,13 +35,36 @@ own `unet_from_diffusers`, `vae_from_diffusers`, `from_openclip`, the three
 `convert_unet_discriminator`, `convert_owlvit`, `convert_glide_text`,
 `convert_glide_image` and `convert_stylegan_xl` map these state_dicts back to the same trees.
 
-One map is torch to torch: `open_clip_state_dict_from_hf` takes an HF
-`transformers` CLIPModel state_dict to the port's open_clip names.
+Two maps are torch to torch: `open_clip_state_dict_from_hf` takes an HF
+`transformers` CLIPModel state_dict to the port's open_clip names, and
+`text_encoder_state_dict_from_hf` SD's HF text encoder to the port's.
+
+The converter CLI (`main`) turns a checkpoint into the port's own artifact:
+
+    python -m perceptor_tpu_torch.convert INPUT --family stable-diffusion \
+        [--name runwayml/stable-diffusion-v1-5] [--out PATH] [--device cpu]
+
+It builds the family's wrapper (fp32, past its memo) over INPUT staged in a
+private cache directory under the name the wrapper searches for, so the
+wrapper's own discovery reads it (any layout it reads: JAX's params-v1, a
+CompVis, diffusers, open_clip or HF file), and writes the wrapper's state
+dicts with `utils.checkpoints.save_port_artifact`, by default to
+`models/<canonical basename>.torch.pt`. The next construction of that
+wrapper finds the file and loads it with no key map. The JAX package never
+finds it: its wrappers search the same directories, but only under a name
+as it stands or with one of their suffixes (`.pt`, `.npz`, ...), never
+`.torch.pt`. Families and default names are the JAX CLI's
+(perceptor_tpu/convert.py).
 """
 
 from __future__ import annotations
 
+import argparse
+import os
 import re
+import shutil
+import sys
+import tempfile
 from typing import Dict, Mapping
 
 import numpy as np
@@ -607,6 +630,22 @@ def _hf_blocks(hf: Mapping, src: str, dst: str, layers: int, sd: StateDict) -> N
                 [torch.as_tensor(hf[f"{s}.self_attn.{n}_proj.{param}"]) for n in "qkv"])
 
 
+def text_encoder_state_dict_from_hf(hf_state_dict: Mapping, cfg: TextConfig,
+                                    prefix: str = "text_model") -> StateDict:
+    """An HF CLIPTextModel state_dict (SD's text encoder, under `prefix`) ->
+    the port's `CLIPTextEncoder` (open_clip names)."""
+    hf = hf_state_dict
+    sd: StateDict = {
+        "token_embedding.weight": torch.as_tensor(hf[f"{prefix}.embeddings.token_embedding.weight"]),
+        "positional_embedding": torch.as_tensor(
+            hf[f"{prefix}.embeddings.position_embedding.weight"]),
+        "ln_final.weight": torch.as_tensor(hf[f"{prefix}.final_layer_norm.weight"]),
+        "ln_final.bias": torch.as_tensor(hf[f"{prefix}.final_layer_norm.bias"]),
+    }
+    _hf_blocks(hf, f"{prefix}.encoder.layers", "transformer.resblocks", cfg.layers, sd)
+    return sd
+
+
 def open_clip_state_dict_from_hf(hf_state_dict: Mapping, cfg: CLIPConfig) -> StateDict:
     """An HF `transformers` CLIPModel state_dict -> the port's open_clip
     names (the torch counterpart of the JAX package's
@@ -1072,3 +1111,133 @@ def stylegan_xl_state_dict_from_jax(params: Mapping, cfg) -> StateDict:
     filters included; the inverse of `convert_stylegan_xl`. The map lives
     beside the model, whose random init loads through it."""
     return params_state_dict(params, cfg)
+
+
+# -- the converter CLI -------------------------------------------------------
+
+FAMILIES = (
+    "stable-diffusion",
+    "guided-diffusion",
+    "velocity-diffusion",
+    "monster-diffusion",
+    "latent-text2image",
+    "latent-face",
+    "latent-super-resolution",
+    "open-clip",
+    "simulacra-aesthetic",
+)
+
+DEFAULT_NAMES = {
+    "stable-diffusion": "runwayml/stable-diffusion-v1-5",
+    "guided-diffusion": "standard",
+    "velocity-diffusion": "yfcc_2",
+    "monster-diffusion": "all",
+    "latent-text2image": "txt2img-1p4B",
+    "latent-face": "celebahq-ldm-vq-4",
+    "latent-super-resolution": "sharpen-colab",
+    "open-clip": "ViT-B-32/openai",
+    "simulacra-aesthetic": "ViT-B-32",
+}
+
+
+def canonical_basename(family: str, name: str) -> str:
+    """The first name the family's wrapper asks `find_checkpoint` for."""
+    if family == "stable-diffusion":
+        return f"stable_diffusion_{name.replace('/', '_')}"
+    if family in ("guided-diffusion", "velocity-diffusion", "monster-diffusion"):
+        return f"{family.replace('-', '_')}_{name}"
+    if family == "latent-text2image":
+        return "latent_diffusion_text2image"
+    if family == "latent-face":
+        return "latent_diffusion_face"
+    if family == "latent-super-resolution":
+        return "latent_diffusion_super_resolution"
+    if family == "open-clip":
+        arch, _, weights = name.partition("/")
+        return f"open_clip_{arch}_{weights}"
+    if family == "simulacra-aesthetic":
+        return f"simulacra_{name}"
+    raise ValueError(f"unknown family {family!r}; choose from {FAMILIES}")
+
+
+def _fresh(cls, *args, **kwargs):
+    """`cls(*args, **kwargs)` past the `utils.cache` memo: a memoized
+    instance would hold the weights it had before the staged file."""
+    return getattr(cls, "__wrapped__", cls)(*args, **kwargs)
+
+
+def _construct(family: str, name: str, device):
+    """The family's wrapper in fp32 (the artifact keeps fp32 masters; a bf16
+    wrapper casts on load)."""
+    from perceptor_tpu_torch import models
+
+    if family == "stable-diffusion":
+        return _fresh(models.StableDiffusion, name, fp16=False, device=device)
+    if family == "guided-diffusion":
+        return _fresh(models.GuidedDiffusion, name, fp16=False, device=device)
+    if family == "velocity-diffusion":
+        return _fresh(models.VelocityDiffusion, name, fp16=False, device=device)
+    if family == "monster-diffusion":
+        return _fresh(models.MonsterDiffusion, name, fp16=False, device=device)
+    if family in ("latent-text2image", "latent-face", "latent-super-resolution"):
+        from perceptor_tpu_torch.models import latent_diffusion
+
+        cls = {"latent-text2image": latent_diffusion.Text2Image,
+               "latent-face": latent_diffusion.Face,
+               "latent-super-resolution": latent_diffusion.SuperResolution}[family]
+        return _fresh(cls, fp16=False, device=device)
+    if family == "open-clip":
+        arch, _, weights = name.partition("/")
+        return _fresh(models.OpenCLIP, arch, weights, precision="fp32", device=device)
+    if family == "simulacra-aesthetic":
+        return _fresh(models.SimulacraAesthetic, name, precision="fp32", device=device)
+    raise ValueError(f"unknown family {family!r}; choose from {FAMILIES}")
+
+
+def convert(input_path: str, family: str, name: str, out: str, device="cuda") -> str:
+    """Convert `input_path` into the port's artifact at `out` (the
+    `.torch.pt` suffix appended when missing); returns the path written."""
+    from perceptor_tpu_torch.utils import checkpoints
+
+    if not os.path.exists(input_path):
+        raise FileNotFoundError(input_path)
+    suffix = os.path.splitext(input_path)[1] or ".pt"
+    staging = tempfile.mkdtemp(prefix="perceptor_tpu_torch_convert_")
+    try:
+        staged = os.path.join(staging, canonical_basename(family, name) + suffix)
+        os.symlink(os.path.abspath(input_path), staged)
+        original_dirs = checkpoints.CACHE_DIRS
+        checkpoints.CACHE_DIRS = (staging,)
+        try:
+            wrapper = _construct(family, name, device)
+        finally:
+            checkpoints.CACHE_DIRS = original_dirs
+        return checkpoints.save_port_artifact(out, wrapper.serving_modules())
+    finally:
+        shutil.rmtree(staging, ignore_errors=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m perceptor_tpu_torch.convert", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("input", help="checkpoint to convert")
+    parser.add_argument("--family", required=True, choices=FAMILIES)
+    parser.add_argument("--name", default=None,
+                        help="name within the family (default: the family's flagship)")
+    parser.add_argument("--out", default=None,
+                        help="artifact path (default: models/<canonical>.torch.pt)")
+    parser.add_argument("--device", default="cuda",
+                        help="where the wrapper is built (default: cuda)")
+    args = parser.parse_args(argv)
+    name = args.name or DEFAULT_NAMES[args.family]
+    from perceptor_tpu_torch.utils.checkpoints import PORT_SUFFIX
+
+    out = args.out or os.path.join("models", canonical_basename(args.family, name) + PORT_SUFFIX)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    print(f"wrote {convert(args.input, args.family, name, out, args.device)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

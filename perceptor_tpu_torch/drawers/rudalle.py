@@ -36,6 +36,7 @@ from perceptor_tpu_torch.drawers.interface import DrawingInterface
 from perceptor_tpu_torch.models.stable_diffusion.config import VAEConfig
 from perceptor_tpu_torch.models.stable_diffusion.vae import Decoder, Encoder
 from perceptor_tpu_torch.ops.layers import Conv2d
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 GUMBEL_F8 = VAEConfig(
     latent_channels=256,  # z_channels
@@ -172,7 +173,10 @@ class BruteRuDalle(DrawingInterface):
         [0, 1] with Gumbel noise from `generator` (none: the argmax code),
         is the drawer's parameter. The VQGAN (GUMBEL_F8, or TINY_GUMBEL with
         `tiny`), `drawer.model`, computes in bf16 on `device` (CUDA unless
-        the caller passes "cpu"), frozen, with random weights from `seed`.
+        the caller passes "cpu"), frozen, with the weights of the checkpoint
+        `find_checkpoint(name, "rudalle_<name>")` finds for the full model
+        (name "vqgan.gumbelf8-sber", "-dwt" appended with `dwt`), else
+        random from `seed`.
         A taming checkpoint loads through
         `model.load_state_dict(first_stage.convert_gumbel_vqgan(sd, cfg))`;
         `replace_(encode(images))` then re-encodes."""
@@ -183,6 +187,19 @@ class BruteRuDalle(DrawingInterface):
                               n_embed=64 if tiny else N_EMBED, dwt=dwt)
         model = random_module(GumbelVQGAN, config, device,
                               torch.Generator(device=device).manual_seed(seed), COMPUTE_DTYPE)
+        name = "vqgan.gumbelf8-sber-dwt" if dwt else "vqgan.gumbelf8-sber"
+        path = None if tiny else find_checkpoint(name, f"rudalle_{name}")
+        if path is not None:
+            from perceptor_tpu_torch.convert import rudalle_state_dict_from_jax
+            from perceptor_tpu_torch.models.latent_diffusion.first_stage import (
+                convert_gumbel_vqgan,
+            )
+
+            # a dwt checkpoint prefixes its names with "model."
+            load_found(path, {"model": model}, lambda params: {
+                "model": rudalle_state_dict_from_jax(params, cfg)},
+                lambda sd: model.load_state_dict(convert_gumbel_vqgan({
+                    k.removeprefix("model."): v for k, v in sd.items()}, cfg)))
         # kept out of the module tree: the VQGAN is no parameter of the drawer
         object.__setattr__(self, "model", model)
         if not isinstance(init_images, torch.Tensor):

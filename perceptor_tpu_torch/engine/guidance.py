@@ -18,7 +18,10 @@ latents (`torch.autograd.grad`, back through the decoder and the UNet) ->
 the JAX package compiles the loop into one `lax.scan` program, here it is
 an eager Python loop; randomness comes from an explicit `torch.Generator`.
 
-Not ported (ROADMAP queue A): `mesh`/`rules` and `export_guided_sample`.
+`export_guided_sample` traces the sampler into a `torch.export` program
+(utils/serving.py); `torch.autograd.grad` stays inside it.
+
+Not ported (ROADMAP queue A): `mesh`/`rules`.
 """
 
 from __future__ import annotations
@@ -207,14 +210,15 @@ def guided_sample(
             f"{type(model).__name__} has no preview_images_fn; loss_images='preview' "
             "needs a latent model with a cheap differentiable preview decode"
         )
-    if (eta > 0.0 or n_resample) and generator is None:
+    if (isinstance(eta, torch.Tensor) or eta > 0.0 or n_resample) and generator is None:
         raise ValueError("eta > 0 and n_resample draw noise: pass generator=")
     device = initial_latents.device
     if generator is None:  # only the augment draws from it
         generator = torch.Generator(device=device).manual_seed(0)
     weights = _loss_weights(loss_weights, len(losses), device)
     # integer (schedule index) pairs stay integer, float (continuous t) pairs fp32
-    pairs = torch.as_tensor(np.asarray(pairs), device=device)
+    pairs = torch.as_tensor(pairs if isinstance(pairs, torch.Tensor) else np.asarray(pairs),
+                            device=device)
     pairs = pairs.float() if pairs.is_floating_point() else pairs.long()
 
     def make_predictions(latents, from_idx):
@@ -265,3 +269,119 @@ def guided_sample(
         latents = stepped
         history.append(value)
     return latents, torch.stack(history) if history else torch.zeros(0, device=device)
+
+
+def guided_noise_shape(example_latents, n_steps: int, eta: float = 0.0, correction: bool = False,
+                       n_resample: int = 0):
+    """The shape of `export_guided_sample`'s `noise` argument: (draws,
+    *latents' shape), one draw per RePaint iteration and, with eta > 0, one
+    per DDIM step and one per correction re-step; draw it with
+    `predictions.base.draw_noise` from the generator `guided_sample` would
+    use to get its numbers."""
+    per_step = n_resample + ((1 + bool(correction)) if float(eta) > 0.0 else 0)
+    return (n_steps * per_step, *example_latents.shape)
+
+
+def export_guided_sample(
+    model,
+    losses: Sequence[Callable],
+    example_latents: torch.Tensor,
+    example_pairs,
+    conditioning=None,
+    loss_weights: Optional[Sequence[float]] = None,
+    eta: float = 0.0,
+    correction: bool = False,
+    n_resample: int = 0,
+    threshold: Optional[str] = None,
+    threshold_quantile: float = 0.95,
+    clamp_value: float = 1e-6,
+    uncond_conditioning=None,
+    loss_images: str = "decoded",
+    image_augment=None,
+    platforms=None,
+) -> bytes:
+    """`guided_sample` as a `torch.export` program (utils/serving.py), as bytes.
+
+    Its signature is `(model_params, latents, pairs, loss_params,
+    conditioning, noise, guidance_scale, eta) -> (latents, loss_history)`:
+    `model_params` is `model.params`, `loss_params` a list with
+    `utils.serving.object_params(loss)` of each loss (its model's modules and
+    its prompt bank), `noise` the pre-drawn step noise of
+    `guided_noise_shape` (empty when nothing is drawn), `guidance_scale` and
+    `eta` 0-d fp32 tensors. With `uncond_conditioning` the conditioning slot
+    is the (cond, uncond) pair and a ninth argument, `cfg_scale`, follows.
+    Static options (correction, threshold, n_resample, whether eta > 0) are
+    baked in; the examples fix the shapes and the step count, whose loop is
+    unrolled. `torch.autograd.grad` stays inside the program, which
+    non-strict export traces; on CUDA the flash forward, dq and dk/dv are
+    nodes of its graph. Losses must be loss objects of the port (whose
+    tensors the export can reach); a plain callable would bake its state
+    into the artifact and is refused. A random `image_augment` cannot take
+    its draws from the noise argument yet and raises `NotImplementedError`,
+    as does `platforms=("cuda",)` on a host without CUDA: the autograd
+    engine of a CPU-only build cannot run on fake CUDA tensors."""
+    from perceptor_tpu_torch.losses.interface import LossInterface
+    from perceptor_tpu_torch.predictions.base import NoiseStream
+    from perceptor_tpu_torch.utils import serving
+
+    if any(not isinstance(loss, LossInterface) for loss in losses):
+        raise ValueError(
+            "export requires loss objects of the port (LossInterface); plain callables would "
+            "bake their state into the artifact"
+        )
+    if threshold not in THRESHOLDS:
+        raise ValueError(f"threshold must be None|'dynamic'|'static', got {threshold!r}")
+    if image_augment is not None:
+        raise NotImplementedError("export_guided_sample: a random image_augment cannot draw "
+                                  "from the noise argument yet")
+    if platforms is not None and "cuda" in platforms and not torch.cuda.is_available():
+        raise NotImplementedError("export_guided_sample for CUDA needs a CUDA build: its "
+                                  "autograd cannot be traced on fake CUDA tensors")
+    losses = list(losses)
+    stochastic = float(eta) > 0.0
+    use_cfg = uncond_conditioning is not None
+    n_steps = len(example_pairs)
+    noise_shape = guided_noise_shape(example_latents, n_steps, eta, correction, n_resample)
+    modules = model.serving_modules()
+
+    def run(latents, pairs, loss_params, conds, noise, guidance_scale, eta_arg, cfg_scale):
+        bound = [_BoundLoss(loss, params) for loss, params in zip(losses, loss_params)]
+        cond, uncond = conds if use_cfg else (conds, None)
+        return guided_sample(
+            model, bound, latents, pairs, conditioning=cond, guidance_scale=guidance_scale,
+            loss_weights=loss_weights, eta=eta_arg if stochastic else 0.0,
+            generator=NoiseStream(noise) if noise_shape[0] else None, correction=correction,
+            n_resample=n_resample, threshold=threshold, threshold_quantile=threshold_quantile,
+            clamp_value=clamp_value, uncond_conditioning=uncond,
+            cfg_scale=cfg_scale if use_cfg else 7.0, loss_images=loss_images,
+        )
+
+    def serve(model_params, latents, pairs, loss_params, conds, noise, guidance_scale, eta_arg,
+              cfg_scale=None):
+        return serving.functional(modules, model_params, run, latents, pairs, loss_params, conds,
+                                  noise, guidance_scale, eta_arg, cfg_scale)
+
+    device = example_latents.device
+    example = (
+        model.params, example_latents,
+        torch.as_tensor(np.asarray(example_pairs), device=device),
+        [serving.object_params(loss) for loss in losses],
+        (conditioning, uncond_conditioning) if use_cfg else conditioning,
+        torch.zeros(noise_shape, device=device),
+        torch.tensor(0.5, device=device), torch.tensor(float(eta), device=device),
+    )
+    if use_cfg:
+        example = example + (torch.tensor(7.0, device=device),)
+    return serving.serialize_program(serve, *example, platforms=platforms, grad=True)
+
+
+class _BoundLoss:
+    """A loss whose tensors are `params` (see `utils.serving.call_with`)."""
+
+    def __init__(self, loss, params):
+        self.loss, self.params = loss, params
+
+    def __call__(self, images):
+        from perceptor_tpu_torch.utils import serving
+
+        return serving.call_with(self.loss, self.params, self.loss, images)

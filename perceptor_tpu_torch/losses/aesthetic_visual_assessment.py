@@ -14,6 +14,8 @@ import torch
 
 from perceptor_tpu_torch import models
 from perceptor_tpu_torch.losses.interface import LossInterface
+from perceptor_tpu_torch.models.simulacra_aesthetic import LinearProbe
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 
 class AestheticVisualAssessment(LossInterface):
@@ -28,9 +30,25 @@ class AestheticVisualAssessment(LossInterface):
         dim = self.model.config.embed_dim
         rng = np.random.default_rng(0)
         head = rng.normal(0, dim**-0.5, (dim, 10)).astype(np.float32)
-        self.weight = torch.as_tensor(head, device=self.model.device)
-        self.bias = torch.zeros((10,), device=self.model.device)
+        self.probe = LinearProbe(torch.as_tensor(head, device=self.model.device),
+                                 torch.zeros((10,), device=self.model.device))
+        path = find_checkpoint("ava_vit_b_16", "ava_vit_b_16_full")
+        if path is not None:
+            load_found(path, {"probe": self.probe}, from_upstream=self._load_upstream)
         self._classes = torch.arange(1, 11, dtype=torch.float32, device=self.model.device)
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.probe.kernel
+
+    @property
+    def bias(self) -> torch.Tensor:
+        return self.probe.bias
+
+    def _load_upstream(self, state_dict) -> None:
+        """The upstream head: `weight` (10, D) and `bias` (10,)."""
+        self.probe.load_state_dict({"kernel": torch.as_tensor(state_dict["weight"]).T,
+                                    "bias": torch.as_tensor(state_dict["bias"])})
 
     def forward(self, images) -> torch.Tensor:
         encodings = self.model.encode_images(images, normalize=False).float()

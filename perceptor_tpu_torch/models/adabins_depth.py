@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ from torch import nn
 from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.ops.layers import Conv2dSame, FrozenBatchNorm2d, LayerNorm
 from perceptor_tpu_torch.ops.resize import interpolate_bilinear, resize
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 MAX_ADABINS_AREA = 500_000
 MIN_ADABINS_AREA = 448 * 448
@@ -475,7 +476,9 @@ DATASETS = {
 class AdaBinsDepth:
     """AdaBins depth: `images (N, 3, H, W) in [0, 1] -> depth (N, 1, H, W)`
     through `predict` over a `UnetAdaptiveBins` whose trunk input is
-    rounded to bf16, as the JAX wrapper's."""
+    rounded to bf16, as the JAX wrapper's. The full-width model loads the
+    checkpoint `find_checkpoint("AdaBins_<name>", "adabins_<name>")` finds
+    and, as JAX's, refuses to run without one; `tiny` is seeded random."""
 
     def __init__(self, name: str = "nyu", tiny: bool = False, device="cuda"):
         if name not in DATASETS:
@@ -484,16 +487,25 @@ class AdaBinsDepth:
         self.tiny = tiny
         self.min_depth = DATASETS[name]["min_depth"]
         self.max_depth = DATASETS[name]["max_depth"]
-        if not tiny:
+        path = None if tiny else find_checkpoint(f"AdaBins_{name}", f"adabins_{name}")
+        if not tiny and path is None:
             raise NotImplementedError(
-                f"AdaBins_{name} weights are not in the tree; the full-width model "
-                "needs the reference checkpoint")
-        self.config = TINY_ADABINS
+                f"AdaBins_{name} weights not found in the checkpoint cache; the full-width "
+                "model needs the reference checkpoint")
+        self.config = TINY_ADABINS if tiny else AdaBinsConfig(min_val=self.min_depth,
+                                                              max_val=self.max_depth)
         self.device = resolve_device(device)
         generator = torch.Generator(device=self.device).manual_seed(0)
         self.module = random_module(
             lambda cfg: UnetAdaptiveBins(cfg, dtype=torch.bfloat16), self.config, self.device,
             generator, torch.float32)
+        if path is not None:
+            load_found(path, {"module": self.module}, self._from_jax, self.load_state_dict)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import adabins_state_dict_from_jax
+
+        return {"module": adabins_state_dict_from_jax(params, self.config)}
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         self.module.load_state_dict(state_dict)

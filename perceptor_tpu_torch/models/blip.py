@@ -189,6 +189,8 @@ class BLIPModule(nn.Module):
 
 @cache
 class BLIP(DualEncoder):
+    _FAMILY = "blip"
+
     def __init__(
         self,
         name: str = "model_base_retrieval_flickr",

@@ -124,9 +124,9 @@ class VisionTransformer(nn.Module):
 
 def checked_token_ids(tokens, vocab_size: int, device) -> torch.Tensor:
     """`tokens` as an int64 tensor on `device`; ids outside [0, vocab_size)
-    raise (one host read-back)."""
+    raise (one host read-back, skipped while `torch.export` traces)."""
     tokens = torch.as_tensor(tokens, device=device).long()
-    if tokens.numel() and (int(tokens.min()) < 0 or int(tokens.max()) >= vocab_size):
+    if tokens.numel() and not torch.compiler.is_exporting() and (int(tokens.min()) < 0 or int(tokens.max()) >= vocab_size):
         raise ValueError(
             f"token ids must lie in [0, {vocab_size}), got "
             f"[{int(tokens.min())}, {int(tokens.max())}]"

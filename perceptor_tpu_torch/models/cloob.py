@@ -171,6 +171,8 @@ class CLOOBModule(nn.Module):
 
 @cache
 class CLOOB(DualEncoder):
+    _FAMILY = "cloob"
+
     def __init__(
         self,
         name: str = "16-epochs",

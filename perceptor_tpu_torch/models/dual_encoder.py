@@ -1,19 +1,20 @@
 """What the CLIP-family wrappers share (SLIP, BLIP, CLOOB, LiT, RuCLIP):
-a frozen tower module on a device, built by `core/init.py random_module`
-from a seed, its matmul weights stored in bf16 unless `precision="fp32"`;
+a frozen tower module on a device, loaded from the checkpoint that
+`find_checkpoint` finds or built by `core/init.py random_module` from a seed, its matmul weights stored in bf16 unless `precision="fp32"`;
 the images' resize and normalization; `load_state_dict`; and the pairwise
 squared spherical distance.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 
 from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE, cast_matmul_params_bf16
 from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.ops.resize import resize
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 
 def _precision_dtype(precision: Optional[str]) -> torch.dtype:
@@ -31,9 +32,15 @@ class DualEncoder:
     """What the CLIP-family wrappers share: a frozen `module` on `device`,
     the image normalization, `load_state_dict` and `spherical_distance`."""
 
+    # the family's prefix of checkpoint names and of its `convert` function
+    _FAMILY = ""
+
     def _build(self, module_cls, config, precision, device, seed, mean=None, std=None) -> None:
-        """`module_cls(config)` with seeded random weights; `mean` and `std`
-        are what `normalize` takes out."""
+        """`module_cls(config)` with the weights of the checkpoint that
+        `find_checkpoint("<family>_<name>", name)` finds
+        (`utils.checkpoints.load_found`; the upstream names through
+        `load_state_dict`), else seeded random; `mean` and `std` are what
+        `normalize` takes out."""
         self.config = config
         self.device = resolve_device(device)
         self.dtype = _precision_dtype(precision)
@@ -42,6 +49,22 @@ class DualEncoder:
         if mean is not None:
             self._mean = torch.as_tensor(mean, device=self.device).reshape(1, 3, 1, 1)
             self._std = torch.as_tensor(std, device=self.device).reshape(1, 3, 1, 1)
+        path = find_checkpoint(*self._checkpoint_names())
+        if path is not None:
+            load_found(path, self.serving_modules(), self._from_jax, self.load_state_dict)
+
+    def _checkpoint_names(self):
+        return (f"{self._FAMILY}_{self.name}", self.name)
+
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules a checkpoint fills, by name."""
+        return {"module": self.module}
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch import convert
+
+        to_state_dict = getattr(convert, f"{self._FAMILY}_state_dict_from_jax")
+        return {"module": to_state_dict(params, self.config)}
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Load the checkpoint's names (a "module." prefix is dropped); the

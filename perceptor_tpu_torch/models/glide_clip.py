@@ -39,6 +39,7 @@ from perceptor_tpu_torch.models.dual_encoder import _generator, _precision_dtype
 from perceptor_tpu_torch.ops.attention import causal_mask, dot_product_attention
 from perceptor_tpu_torch.ops.resize import resize
 from perceptor_tpu_torch.utils.cache import cache
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 CHANNEL_MEANS = (122.77093945, 116.74601272, 104.09373519)
 CHANNEL_STDS = (68.50053285, 66.63215831, 70.32316309)
@@ -266,7 +267,10 @@ class GlideCLIP:
     ):
         """GLIDE's CLIP trained on noisy images: `encode_images(diffused,
         ts)`, `encode_texts(prompts)`. Both towers frozen on `device` (CUDA
-        unless the caller passes "cpu"), random weights from `seed`, matmul
+        unless the caller passes "cpu"); the weights of GLIDE's two files
+        when `find_checkpoint` finds both ("glide_clip_text_enc" or
+        "clip_text_enc", "glide_clip_image_enc" or "clip_image_enc"), else
+        random from `seed`; matmul
         weights in bf16 unless `precision="fp32"`; memoized on its
         arguments."""
         if name not in CONFIGS:
@@ -282,6 +286,11 @@ class GlideCLIP:
         self.image_encoder = _random_tower(GlideImageEncoder, cfg, self.device, generator,
                                            self.dtype)
         self._tokenizer = tokenizer
+        text_path = find_checkpoint("glide_clip_text_enc", "clip_text_enc")
+        image_path = find_checkpoint("glide_clip_image_enc", "clip_image_enc")
+        if text_path is not None and image_path is not None:
+            load_found(text_path, {"text": self.text_encoder})
+            load_found(image_path, {"image": self.image_encoder})
 
     @property
     def tokenizer(self) -> SimpleTokenizer:

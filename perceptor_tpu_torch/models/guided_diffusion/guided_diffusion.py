@@ -25,7 +25,7 @@ Not ported (ROADMAP queue A): `mesh`/`rules` and checkpoint discovery.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,8 @@ from perceptor_tpu_torch.models.guided_diffusion import config as adm_config
 from perceptor_tpu_torch.models.guided_diffusion.unet import ADMUNet
 from perceptor_tpu_torch.predictions import IndexedEpsPredictions, diffusion_space
 from perceptor_tpu_torch.schedules import indexed_schedule, linear_alphas_sigmas
+from perceptor_tpu_torch.utils import serving
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 METHODS = ("ddim", "dpm++")
 
@@ -45,7 +47,9 @@ class GuidedDiffusion:
                  remat: bool = False):
         """`name` is a key of `config.MODEL_CONFIGS` (standard: the 512px
         ImageNet finetune; pixelart; tiny); `fp16` stores matmul/conv
-        weights in bf16 (bf16 compute); weights are random from `seed`;
+        weights in bf16 (bf16 compute); weights come from the checkpoint that
+        `find_checkpoint("guided_diffusion_<name>", name)` finds
+        (`utils.checkpoints.load_found`), else they are random from `seed`;
         `device` is CUDA unless the caller passes "cpu"; `remat` recomputes
         the UNet's res and attention blocks in the backward pass."""
         if name not in adm_config.MODEL_CONFIGS:
@@ -60,6 +64,24 @@ class GuidedDiffusion:
         alphas, sigmas = linear_alphas_sigmas()
         self.schedule_alphas = torch.as_tensor(alphas, device=self.device)
         self.schedule_sigmas = torch.as_tensor(sigmas, device=self.device)
+        path = find_checkpoint(f"guided_diffusion_{name}", name)
+        if path is not None:
+            load_found(path, self.serving_modules(), self._from_jax, self.load_state_dict)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import adm_state_dict_from_jax
+
+        return {"module": adm_state_dict_from_jax(params, self.config)}
+
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules whose tensors `params` lists, by the same names."""
+        return {"module": self.module}
+
+    @property
+    def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{"module": the UNet's parameters and buffers by name}: the weights
+        argument of the exported programs."""
+        return {"module": serving.module_params(self.module)}
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Load an OpenAI-named ADM state_dict; the module keeps its storage

@@ -17,7 +17,7 @@ Not ported: `mesh`/`rules` and checkpoint discovery.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -28,6 +28,7 @@ from perceptor_tpu_torch.models.guided_diffusion.unet import ADMUNet
 from perceptor_tpu_torch.models.latent_diffusion import first_stage
 from perceptor_tpu_torch.models.latent_diffusion.ddim import LatentDiffusionSchedule, check_method
 from perceptor_tpu_torch.predictions import diffusion_space
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found, strip_prefix
 
 # celebahq-ldm-vq-4.yaml model.params schedule
 TIMESTEPS = 1000
@@ -78,6 +79,30 @@ class VQLatentDiffusion(LatentDiffusionSchedule):
         for key in ("unet", "first_stage"):
             getattr(self, key).load_state_dict(state_dicts[key])
 
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules a checkpoint fills, by name."""
+        return {"unet": self.unet, "first_stage": self.first_stage}
+
+    def _discover(self, *names: str) -> None:
+        """Load the checkpoint `find_checkpoint(*names)` finds, if any
+        (`utils.checkpoints.load_found`; a CompVis file: the UNet under
+        `model.diffusion_model.`, the VQ stage through the first-stage key
+        map)."""
+        path = find_checkpoint(*names)
+        if path is not None:
+            load_found(path, self.serving_modules(), self._from_jax, self._load_upstream)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import vq_diffusion_state_dicts_from_jax
+
+        return vq_diffusion_state_dicts_from_jax(params, self.unet_config, self.vq_config)
+
+    def _load_upstream(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        self.load_state_dicts({
+            "unet": strip_prefix(state_dict, "model.diffusion_model."),
+            "first_stage": first_stage.convert_compvis_autoencoder(state_dict, self.vq_config),
+        })
+
     def latents(self, images) -> torch.Tensor:
         """images [0, 1] -> continuous VQ latents."""
         return self.first_stage.encode(diffusion_space.encode(images))
@@ -94,11 +119,14 @@ class Face(VQLatentDiffusion):
     def __init__(self, eta: float = 0.0, fp16: bool = True, tiny: bool = False, device="cuda",
                  seed: int = 0):
         """`tiny` picks the test widths; `fp16` stores matmul/conv weights
-        in bf16; weights are random from `seed`; `device` is CUDA unless the
-        caller passes "cpu"."""
+        in bf16; weights come from the checkpoint that
+        `find_checkpoint("latent_diffusion_face", "celebahq-ldm-vq-4")` finds,
+        else they are random from `seed`; `device` is CUDA unless the caller
+        passes "cpu"."""
         self.eta = eta
         self._build(TINY_FACE_UNET if tiny else FACE_UNET,
                     first_stage.TINY_VQ if tiny else first_stage.VQ_F4, fp16, device, seed)
+        self._discover("latent_diffusion_face", "celebahq-ldm-vq-4")
         self._set_schedule(LINEAR_START, LINEAR_END)
 
     def latent_shape(self, height, width):

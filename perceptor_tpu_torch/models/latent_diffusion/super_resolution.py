@@ -55,12 +55,15 @@ class SuperResolution(VQLatentDiffusion):
                  seed: int = 0):
         """`convolutional`, `kernel_size` and `stride` (the reference's
         tiling) are accepted and dropped; `tiny` picks the test widths;
-        `fp16` stores matmul/conv weights in bf16; weights are random from
-        `seed`; `device` is CUDA unless the caller passes "cpu"."""
+        `fp16` stores matmul/conv weights in bf16; weights come from the
+        checkpoint that `find_checkpoint("latent_diffusion_super_resolution",
+        "sharpen-colab")` finds, else they are random from `seed`; `device`
+        is CUDA unless the caller passes "cpu"."""
         del convolutional, kernel_size, stride  # full-frame convolutions
         self.eta = eta
         self._build(TINY_SR_UNET if tiny else SR_UNET,
                     first_stage.TINY_VQ if tiny else first_stage.VQ_F4, fp16, device, seed)
+        self._discover("latent_diffusion_super_resolution", "sharpen-colab")
         self.up_f = self.vq_config.downscale  # 4 for the real vq-f4 stage
         self._set_schedule(0.0015, 0.0155)
 

@@ -24,7 +24,7 @@ Not ported: `mesh`/`rules` and checkpoint discovery.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -36,6 +36,7 @@ from perceptor_tpu_torch.models.latent_diffusion import bert as bert_lib
 from perceptor_tpu_torch.models.latent_diffusion.ddim import LatentDiffusionSchedule, check_method
 from perceptor_tpu_torch.models.stable_diffusion.config import SD_V1_VAE, TINY_VAE
 from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found, strip_prefix
 
 # txt2img-1p4B-eval.yaml model.params: the LDM "linear" schedule is linear
 # in sqrt(beta) space, SD's scaled-linear
@@ -83,7 +84,10 @@ class Text2Image(LatentDiffusionSchedule):
         seed: int = 0,
     ):
         """`tiny` picks the test widths; `fp16` stores matmul/conv weights
-        in bf16 (bf16 compute); weights are random from `seed`; `device` is
+        in bf16 (bf16 compute); weights come from the checkpoint that
+        `find_checkpoint("latent_diffusion_text2image", "txt2img-1p4B")`
+        finds (`utils.checkpoints.load_found`; a CompVis file through the
+        first-stage key map), else they are random from `seed`; `device` is
         CUDA unless the caller passes "cpu"."""
         self.guidance_scale = guidance_scale
         self.eta = eta
@@ -99,6 +103,33 @@ class Text2Image(LatentDiffusionSchedule):
         self.bert = random_module(bert_lib.BERTEncoder, self.bert_config, self.device, gen, dtype)
         self._tokenizer = tokenizer
         self._set_schedule(LINEAR_START, LINEAR_END)
+        path = find_checkpoint("latent_diffusion_text2image", "txt2img-1p4B")
+        if path is not None:
+            load_found(path, self.serving_modules(), self._from_jax, self._load_upstream)
+
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules a checkpoint fills, by name."""
+        return {key: getattr(self, key) for key in ("unet", "first_stage", "bert")}
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import text2image_state_dicts_from_jax
+
+        return text2image_state_dicts_from_jax(params, self.unet_config, self.vae_config,
+                                               self.bert_config)
+
+    def _load_upstream(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """A CompVis checkpoint: the UNet under `model.diffusion_model.`, the
+        KL first stage under `first_stage_model.` (CompVis names), BERT
+        under `cond_stage_model.transformer.`."""
+        from perceptor_tpu_torch.models.latent_diffusion.first_stage import (
+            convert_compvis_autoencoder,
+        )
+
+        self.load_state_dicts({
+            "unet": strip_prefix(state_dict, "model.diffusion_model."),
+            "first_stage": convert_compvis_autoencoder(state_dict, self.vae_config),
+            "bert": strip_prefix(state_dict, "cond_stage_model.transformer."),
+        })
 
     def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
         """Load {"unet", "first_stage", "bert"} state_dicts (each module

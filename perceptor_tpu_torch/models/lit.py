@@ -81,6 +81,8 @@ class LiTModule(nn.Module):
 
 @cache
 class LiT(DualEncoder):
+    _FAMILY = "lit"
+
     def __init__(
         self,
         name: str = "LiT-L16L",

@@ -35,6 +35,7 @@ from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.models.vgg import VGG16_CFG, VGGFeatures, tapped
 from perceptor_tpu_torch.ops.resize import interpolate_bilinear
 from perceptor_tpu_torch.utils.cache import cache
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_state_dict
 
 # lpips ScalingLayer constants
 _SHIFT = np.array([-0.030, -0.088, -0.188], dtype=np.float32)
@@ -174,6 +175,20 @@ class LPIPS:
                 lin.model[1].weight.fill_(1.0 / c)
         self._shift = torch.as_tensor(_SHIFT, device=self.device).reshape(1, 3, 1, 1)
         self._scale = torch.as_tensor(_SCALE, device=self.device).reshape(1, 3, 1, 1)
+        backbone_path = find_checkpoint(f"lpips_{name}_backbone", name)
+        lin_path = find_checkpoint(f"lpips_{name}_lin")
+        for path, part in ((backbone_path, "features."), (lin_path, "lin")):
+            if path is not None:
+                self._load_part(load_state_dict(path), part)
+
+    def _load_part(self, state_dict: Mapping[str, torch.Tensor], part: str) -> None:
+        """One of the two upstream files: the torchvision trunk (its
+        `features.*`) or lpips' heads (`lin{k}.model.1.weight`)."""
+        own = [k for k in self.module.state_dict() if k.startswith(part)]
+        missing = [k for k in own if k not in state_dict]
+        if missing:
+            raise ValueError(f"lpips {self.name}: the checkpoint lacks {missing[:3]}")
+        self.module.load_state_dict({k: state_dict[k] for k in own}, strict=False)
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """A torchvision trunk's `features.*` and lpips' `lin{k}.model.1.weight`."""

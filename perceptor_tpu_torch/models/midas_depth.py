@@ -47,7 +47,7 @@ when it finds none.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Sequence, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +64,7 @@ from perceptor_tpu_torch.ops.layers import (
     Conv2d, ConvTranspose2d, GroupNorm, LayerNorm, Linear, pad_same)
 from perceptor_tpu_torch.ops.resize import interpolate_bilinear, resize
 from perceptor_tpu_torch.utils.cache import cache
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 
 @dataclasses.dataclass(frozen=True)
@@ -634,8 +635,9 @@ class MidasDepth:
                  seed: Union[int, torch.Generator] = 0):
         """`name` is one of CHECKPOINT_NAMES or TEST_NAMES; `optimize`
         computes in bf16 where the JAX package does, else in fp32; the
-        weights are random from `seed` (an int or a `torch.Generator` on
-        `device`); `device` is CUDA unless the caller passes "cpu"."""
+        weights are those of the checkpoint `find_checkpoint("midas_<name>",
+        name)` finds (`utils.checkpoints.load_found`), else random from
+        `seed` (an int or a `torch.Generator` on `device`); `device` is CUDA unless the caller passes "cpu"."""
         if name not in CHECKPOINT_NAMES + TEST_NAMES:
             raise ValueError(f"midas_model_type '{name}' not implemented")
         self.name = name
@@ -649,6 +651,19 @@ class MidasDepth:
             seed = torch.Generator(device=self.device).manual_seed(seed)
         self.module = random_module(lambda cfg: cls(cfg, dtype=dtype), self.config, self.device,
                                     seed, torch.float32)
+        path = find_checkpoint(f"midas_{name}", name)
+        if path is not None:
+            load_found(path, {"module": self.module}, self._from_jax, self.load_state_dict)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch import convert
+
+        to_state_dict = {
+            DPTConfig: convert.dpt_state_dict_from_jax,
+            MidasNetConfig: convert.midas_net_state_dict_from_jax,
+            MidasNetSmallConfig: convert.midas_net_small_state_dict_from_jax,
+        }[type(self.config)]
+        return {"module": to_state_dict(params, self.config)}
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Load an upstream-named state_dict; the module keeps its storage

@@ -25,7 +25,7 @@ checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.models.monster_diffusion import net as monster_net
 from perceptor_tpu_torch.predictions import EDMPredictions, base, diffusion_space
 from perceptor_tpu_torch.schedules import EDM, edm_preconditioning, edm_schedule_ts, edm_sigmas
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 INPUT_SHAPE = (3, 48, 48)
 N_AUGMENTATIONS = 9
@@ -44,7 +45,8 @@ class MonsterDiffusion:
     def __init__(self, name: str = "all", fp16: bool = True, device="cuda", seed: int = 0):
         """`name` is "all", "tiny-hero" (the published config) or "tiny";
         `fp16` stores matmul/conv weights in bf16 (bf16 compute); weights
-        are random from `seed`; `device` is CUDA unless the caller passes
+        are those of the checkpoint `find_checkpoint("monster_diffusion_<name>", name)`
+        finds (`utils.checkpoints.load_found`), else random from `seed`; `device` is CUDA unless the caller passes
         "cpu"."""
         if name not in monster_net.MODEL_CONFIGS:
             raise ValueError(f"Unknown model name {name}")
@@ -56,6 +58,18 @@ class MonsterDiffusion:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.module = random_module(monster_net.MonsterUNet, self.config, self.device, gen,
                                     self.dtype)
+        path = find_checkpoint(f"monster_diffusion_{name}", name)
+        if path is not None:
+            load_found(path, self.serving_modules(), self._from_jax, self.load_state_dict)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import monster_state_dict_from_jax
+
+        return {"module": monster_state_dict_from_jax(params, self.config)}
+
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules a checkpoint fills, by name."""
+        return {"module": self.module}
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Load a state_dict of `MonsterUNet`; the module keeps its storage

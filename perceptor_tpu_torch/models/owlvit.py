@@ -272,6 +272,11 @@ _UNUSED_KEYS = ("owlvit.visual_projection.weight", "owlvit.logit_scale")
 
 @cache
 class OWLViT(DualEncoder):
+    _FAMILY = "owlvit"
+
+    def _checkpoint_names(self):
+        return (f"owlvit_{self.name.replace('/', '_')}", self.name)
+
     def __init__(
         self,
         name: str = "google/owlvit-base-patch32",
@@ -281,7 +286,9 @@ class OWLViT(DualEncoder):
         seed: Union[int, torch.Generator] = 0,
     ):
         """The detector `name` (CONFIGS), frozen on `device` (CUDA unless
-        the caller passes "cpu") with random weights from `seed`, its tower
+        the caller passes "cpu") with the weights of the checkpoint that
+        `find_checkpoint("owlvit_<name with / as _>", name)` finds, else
+        random from `seed`, its tower
         weights stored in bf16 unless `precision="fp32"`; memoized on its
         arguments."""
         if name not in CONFIGS:

@@ -19,7 +19,7 @@ widths, or loaded with `load_state_dict`.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,7 @@ from torch import nn
 from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.models.resnet import RESNET152, TINY_RESNEXT, ResNetConfig, ResNetFeatures
 from perceptor_tpu_torch.utils.cache import cache
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 CROP_SIZE = 227
 
@@ -106,6 +107,15 @@ class ResMem:
             lambda cfg: ResMemNet(*cfg), (config, width_mult, spatial), self.device, generator,
             torch.float32,
         )
+        path = find_checkpoint("resmem", name) if name == "resmem" else None
+        if path is not None:
+            load_found(path, {"module": self.module}, self._from_jax, self.load_state_dict)
+
+    @staticmethod
+    def _from_jax(params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import resmem_state_dict_from_jax
+
+        return {"module": resmem_state_dict_from_jax(params)}
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         self.module.load_state_dict(state_dict)

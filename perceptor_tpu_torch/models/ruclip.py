@@ -69,6 +69,8 @@ class RuCLIPModule(CLIP):
 
 @cache
 class RuCLIP(DualEncoder):
+    _FAMILY = "ruclip"
+
     def __init__(
         self,
         name: str = "ruclip-vit-base-patch32-224",

@@ -175,6 +175,8 @@ class SLIPModule(TextTransformer):
 
 @cache
 class SLIP(DualEncoder):
+    _FAMILY = "slip"
+
     def __init__(
         self,
         name: str = "SLIP_VITB16",

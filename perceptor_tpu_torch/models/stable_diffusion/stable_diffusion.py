@@ -24,22 +24,24 @@ JAX program does. Where JAX compiles the sampler into one `lax.scan`
 program, here `sample_loop` is an eager Python loop over the schedule
 pairs. Randomness comes from an explicit `torch.Generator`.
 
-Weights are seeded random at the published widths (the tree holds no
-checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
+Weights come from a checkpoint found in the cache directories
+(`utils/checkpoints.py`), else they are seeded random at the published
+widths; stored in bf16 for matmuls and convolutions when `fp16`.
 `load_state_dicts` takes real or converted weights
-(`convert.stable_diffusion_state_dicts_from_jax`).
-
-Not ported (ROADMAP queue A): `mesh`/`rules`, `prime`, the `export_*`
-programs and checkpoint discovery. An original CompVis
+(`convert.stable_diffusion_state_dicts_from_jax`); an original CompVis
 checkpoint's UNet keys map onto `UNet` through
 `models/stable_diffusion/convert.py compvis_to_diffusers_unet`.
+
+`export_sample` and `export_conditioning` trace the sampler and the text
+encoder into `torch.export` programs (utils/serving.py); `prime` warms the
+eager sampler. Not ported (ROADMAP queue A): `mesh`/`rules`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from contextlib import contextmanager
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +51,7 @@ from perceptor_tpu_torch.core.dtypes import COMPUTE_DTYPE
 from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.models.clip.tokenizer import SimpleTokenizer, tokenize
 from perceptor_tpu_torch.models.stable_diffusion import config as sd_config
+from perceptor_tpu_torch.models.stable_diffusion.convert import compvis_to_diffusers_unet
 from perceptor_tpu_torch.models.stable_diffusion.text_encoder import CLIPTextEncoder
 from perceptor_tpu_torch.models.stable_diffusion.unet import UNet
 from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
@@ -57,6 +60,8 @@ from perceptor_tpu_torch.ops.resize import interpolate_bilinear
 from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions
 from perceptor_tpu_torch.predictions import base as prediction_base
 from perceptor_tpu_torch.schedules import indexed_schedule, scaled_linear_alphas_sigmas
+from perceptor_tpu_torch.utils import serving
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 # Published SD-1.x linear latent -> RGB preview factors (rows: the 4 latent
 # channels); an approximate, differentiable decode for preview and guidance.
@@ -129,7 +134,11 @@ class StableDiffusion:
     ):
         """`name` is "tiny", "tiny-inpainting" or a key of
         `config.MODEL_CONFIGS`; `fp16` stores matmul/conv weights in bf16
-        (bf16 compute); weights are random from `seed`; `device` is CUDA
+        (bf16 compute); weights come from the checkpoint that
+        `find_checkpoint("stable_diffusion_<name with / as _>", name)` finds
+        (`utils.checkpoints.load_found`: the port's artifact, JAX's
+        params-v1, the port's own keys, or a CompVis or diffusers file), else
+        they are random from `seed`; `device` is CUDA
         unless the caller passes "cpu"; `remat` recomputes the UNet's res and
         transformer blocks in the backward pass (guidance)."""
         if name in ("tiny", "tiny-inpainting"):
@@ -154,6 +163,49 @@ class StableDiffusion:
         alphas, sigmas = scaled_linear_alphas_sigmas()
         self.schedule_alphas = torch.as_tensor(alphas, device=self.device)
         self.schedule_sigmas = torch.as_tensor(sigmas, device=self.device)
+        path = find_checkpoint(f"stable_diffusion_{name.replace('/', '_')}", name)
+        if path is not None:
+            load_found(path, self.serving_modules(), self._from_jax, self._load_upstream)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import stable_diffusion_state_dicts_from_jax
+
+        return stable_diffusion_state_dicts_from_jax(
+            params, self.unet_config, self.vae_config, self.text_config)
+
+    def _load_upstream(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """A CompVis checkpoint (`model.diffusion_model.*`,
+        `first_stage_model.*`, `cond_stage_model.transformer.*`) or a
+        diffusers pipeline's (`unet.*`, `vae.*`, `text_encoder.*`, the text
+        encoder in HF names)."""
+        from perceptor_tpu_torch.convert import text_encoder_state_dict_from_hf
+        from perceptor_tpu_torch.models.latent_diffusion.first_stage import (
+            convert_compvis_autoencoder,
+        )
+
+        def sub(prefix):
+            return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+
+        if any(k.startswith("model.diffusion_model.") for k in state_dict):
+            states = {
+                "unet": compvis_to_diffusers_unet(state_dict, self.unet_config),
+                "vae": convert_compvis_autoencoder(state_dict, self.vae_config),
+                "text_encoder": text_encoder_state_dict_from_hf(
+                    sub("cond_stage_model.transformer."), self.text_config),
+            }
+        else:
+            states = {"unet": sub("unet."), "vae": sub("vae."),
+                      "text_encoder": text_encoder_state_dict_from_hf(
+                          sub("text_encoder."), self.text_config)}
+        self.load_state_dicts(states)
+
+    _PARTS = ("unet", "vae", "text_encoder")
+
+    @property
+    def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{"unet", "vae", "text_encoder"}: each module's parameters and
+        buffers by name, the weights argument of the exported programs."""
+        return {part: serving.module_params(getattr(self, part)) for part in self._PARTS}
 
     def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
         """Load {"unet", "vae", "text_encoder"} state_dicts (each module
@@ -506,6 +558,112 @@ class StableDiffusion:
                 fresh = prediction_base.randn_like(latents, generator)
                 latents = (init_latents * alphas + fresh * sigmas) * (1 - masks) + latents * masks
             yield latents, predictions
+
+    # -- serving -------------------------------------------------------------
+
+    def prime(self, sizes=((512, 512),), n_steps: int = 50, **kwargs) -> None:
+        """Warm the sampler for the given image sizes: build the flash
+        kernels' library (on CUDA), then run one short `sample` at each size
+        so that cuDNN's algorithm choices and the allocator's pools are
+        settled before the first real call. Eager PyTorch compiles nothing,
+        so this warms rather than compiles; `kwargs` go to `sample`."""
+        if self.device.type == "cuda":
+            from perceptor_tpu_torch.ops import flash_attention_kernel
+
+            flash_attention_kernel.build_library()
+        for size in sizes:
+            self.sample([""], n_steps=n_steps, size=tuple(size), **kwargs)
+
+    def _step_draws(self, n_pairs: int, eta: float, n_resample: int) -> int:
+        """The noise draws `sample_loop` makes: one per RePaint iteration
+        and, with eta > 0, one per DDIM step."""
+        return n_pairs * (n_resample + (1 if float(eta) > 0.0 else 0))
+
+    def sample_noise_shape(self, batch: int = 1, size: Tuple[int, int] = (512, 512),
+                           n_steps: int = 50, from_index: int = 999, to_index: int = 0,
+                           eta: float = 0.0, n_resample: int = 0) -> Tuple[int, ...]:
+        """The shape of `export_sample`'s `noise` argument: (draws, batch,
+        C, H/8, W/8), draws 0 when the sampler draws nothing. Draw it with
+        `predictions.base.draw_noise(generator, shape)` from the generator
+        `sample_loop` would use to get the same numbers."""
+        down = self.vae_config.downscale
+        pairs = self.schedule_indices(n_steps, from_index=from_index, to_index=to_index)
+        return (self._step_draws(len(pairs), eta, n_resample), batch,
+                self.vae_config.latent_channels, size[0] // down, size[1] // down)
+
+    def export_sample(
+        self,
+        batch: int = 1,
+        size: Tuple[int, int] = (512, 512),
+        n_steps: int = 50,
+        from_index: int = 999,
+        to_index: int = 0,
+        eta: float = 0.0,
+        n_resample: int = 0,
+        cache_interval: int = 1,
+        platforms=None,
+        method: str = "ddim",
+    ) -> bytes:
+        """The text-to-image program, CFG sampling and the VAE decode as one
+        function, serialized by `utils.serving` (a `torch.export` archive).
+
+        Its signature is `(params, context2, diffused_latents, noise,
+        guidance_scale) -> images`: `params` is `self.params`, `context2`
+        the uncond and cond text-encoder states stacked, (2 batch, 77,
+        width) (the conditioning program or `conditioning` gives them),
+        `diffused_latents` (batch, C, H/8, W/8), `noise` the step noise of
+        `sample_noise_shape` (empty for DDIM at eta 0 and dpm++), and
+        `guidance_scale` a 0-d fp32 tensor. The schedule is baked in, and
+        `eta`, `n_resample`, `cache_interval` and `method` are static, as in
+        the JAX package. The step loop is unrolled into the graph, so the
+        artifact grows with `n_steps`. Load it with
+        `utils.serving.load_program`."""
+        self._check_size(size)
+        self._check_method(method, eta, n_resample, cache_interval)
+        pairs = self.schedule_indices(n_steps, from_index=from_index, to_index=to_index)
+        stochastic = self._step_draws(len(pairs), eta, n_resample) > 0
+
+        @torch.no_grad()
+        def run(context2, latents, noise, guidance_scale):
+            stream = prediction_base.NoiseStream(noise) if stochastic else None
+            out = self.sample_loop(
+                latents, pairs, context2[:batch], context2[batch:], guidance_scale, eta=eta,
+                generator=stream, n_resample=n_resample, method=method,
+                cache_interval=cache_interval,
+            )
+            return self.decode(out)
+
+        def serve(params, context2, latents, noise, guidance_scale):
+            return serving.functional(self.serving_modules(), params, run, context2, latents, noise,
+                                      guidance_scale)
+
+        shape = self.sample_noise_shape(batch, size, n_steps, from_index, to_index, eta,
+                                        n_resample)
+        example = (
+            self.params,
+            torch.zeros((2 * batch, self.text_config.context_length,
+                         self.unet_config.context_dim), device=self.device),
+            torch.zeros(shape[1:], device=self.device),
+            torch.zeros(shape, device=self.device),
+            torch.tensor(7.0, device=self.device),
+        )
+        return serving.serialize_program(serve, *example, platforms=platforms)
+
+    def export_conditioning(self, batch: int = 1, platforms=None) -> bytes:
+        """The text-conditioning program `(params, tokens) -> encoder
+        states` for 2 batch prompts (the uncond and cond stack that
+        `export_sample` takes), serialized like it. Tokenize on the host
+        with `models.clip.tokenizer.tokenize`."""
+        def serve(params, tokens):
+            return serving.functional(self.serving_modules(), params, self.text_encoder, tokens)
+
+        example = (self.params, torch.zeros((2 * batch, self.text_config.context_length),
+                                            dtype=torch.long, device=self.device))
+        return serving.serialize_program(serve, *example, platforms=platforms)
+
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules whose tensors `params` lists, by the same names."""
+        return {part: getattr(self, part) for part in self._PARTS}
 
     @torch.no_grad()
     def sample_iter(

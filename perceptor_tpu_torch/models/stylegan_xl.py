@@ -36,7 +36,7 @@ from perceptor_tpu_torch.core.init import resolve_device
 from perceptor_tpu_torch.ops.bias_act import bias_act
 from perceptor_tpu_torch.ops.filtered_lrelu import filtered_lrelu
 from perceptor_tpu_torch.utils.cache import cache
-from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_state_dict
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 
 @dataclasses.dataclass(frozen=True)
@@ -507,7 +507,7 @@ class StyleGANXL:
         the caller passes "cpu"), computing its synthesis in `dtype` (bf16,
         as JAX's wrapper; fp32 for a reference build), frozen. Its weights
         come from `find_checkpoint("stylegan_xl_<name>", name)` when a file
-        is found (`load_state_dict`), else JAX's seed-0 random draw, the same
+        is found (`utils.checkpoints.load_found`), else JAX's seed-0 random draw, the same
         weights as the JAX wrapper's. Memoized on its arguments."""
         if name not in MODEL_CONFIGS:
             raise ValueError(f"unknown stylegan-xl model: {name}")
@@ -517,7 +517,9 @@ class StyleGANXL:
         self.generator = StyleGANXLGenerator(self.config, dtype=dtype)
         path = find_checkpoint(f"stylegan_xl_{name}", name)
         if path is not None:
-            self.load_state_dict(load_state_dict(path))
+            load_found(path, {"generator": self.generator},
+                       lambda params: {"generator": params_state_dict(params, self.config)},
+                       self.load_state_dict)
         else:
             self.generator.load_state_dict(
                 params_state_dict(init_params(self.config), self.config))

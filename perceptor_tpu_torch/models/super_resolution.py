@@ -34,6 +34,7 @@ from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.ops.layers import Conv2d
 from perceptor_tpu_torch.ops.resize import interpolate_bilinear, resize
 from perceptor_tpu_torch.utils.cache import cache
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 CHECKPOINT_CONFIGS = {
     # name -> (arch, scale, num_block/num_conv)
@@ -283,9 +284,11 @@ class SuperResolution:
         seed: Union[int, torch.Generator] = 0,
     ):
         """The Real-ESRGAN network `name` (CHECKPOINT_CONFIGS), frozen on
-        `device` (CUDA unless the caller passes "cpu") with random weights
-        from `seed`, its matmul weights in bf16 with `half`; memoized on its
-        arguments. `load_state_dict` takes a basicsr file."""
+        `device` (CUDA unless the caller passes "cpu") with the weights of
+        the checkpoint `find_checkpoint("super_resolution_<name>", name)`
+        finds, else random from `seed`, its matmul weights in bf16 with
+        `half`; memoized on its arguments. `load_state_dict` takes a basicsr
+        file."""
         if name not in CHECKPOINT_CONFIGS:
             raise ValueError(f"unknown super resolution model: {name}")
         self.name = name
@@ -307,6 +310,17 @@ class SuperResolution:
             for layer in self.module.modules():
                 if isinstance(layer, PReLU):
                     layer.weight.fill_(0.25)  # nn.PReLU's init: a unit slope is no activation
+        self._config = config
+        path = find_checkpoint(f"super_resolution_{name}", name)
+        if path is not None:
+            load_found(path, {"module": self.module}, self._from_jax, self.load_state_dict)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch import convert
+
+        if isinstance(self._config, RRDBConfig):
+            return {"module": convert.rrdbnet_state_dict_from_jax(params)}
+        return {"module": convert.srvgg_state_dict_from_jax(params, self._config.num_conv)}
 
     def load_state_dict(self, state_dict: Mapping) -> None:
         self.module.load_state_dict(_unwrap(state_dict))

@@ -56,9 +56,12 @@ class TransformersOpenAICLIP(OpenCLIP.__wrapped__):
                 f"unknown transformers clip model: {name} "
                 f"(multilingual M-CLIP variants are not yet supported)"
             )
+        self.name = name
         super().__init__(NAME_TO_ARCH[name], "openai", tokenizer=tokenizer, device=device,
                          seed=seed, **kwargs)
-        self.name = name
+
+    def _checkpoint_names(self):
+        return (f"transformers_clip_{self.name.replace('/', '_')}", self.name)
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """An HF `CLIPModel` state_dict."""

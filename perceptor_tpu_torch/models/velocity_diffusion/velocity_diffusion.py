@@ -25,7 +25,7 @@ discovery.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +35,10 @@ from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.models.velocity_diffusion import configs, pndm
 from perceptor_tpu_torch.models.velocity_diffusion.net import VDiffusionUNet
 from perceptor_tpu_torch.predictions import VelocityPredictions, diffusion_space
+from perceptor_tpu_torch.predictions.base import NoiseStream
 from perceptor_tpu_torch.schedules import sigma_to_t, t_to_alpha_sigma, velocity_schedule_ts
+from perceptor_tpu_torch.utils import serving
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 METHODS = ("ddim", "plms", "prk", "dpm++")
 
@@ -46,7 +49,8 @@ class VelocityDiffusion:
         """`name` is a key of `configs.MODEL_CONFIGS` (yfcc_2, yfcc_1,
         cc12m_1_cfg (CLIP-conditioned), wikiart, tiny, tiny_conditioned);
         `fp16` stores matmul/conv weights in bf16 (bf16 compute); weights
-        are random from `seed`; `device` is CUDA unless the caller passes
+        are those of the checkpoint `find_checkpoint("velocity_diffusion_<name>", name)`
+        finds (`utils.checkpoints.load_found`), else random from `seed`; `device` is CUDA unless the caller passes
         "cpu"; `remat` recomputes the UNet's conv blocks in the backward
         pass."""
         if name not in configs.MODEL_CONFIGS:
@@ -58,6 +62,24 @@ class VelocityDiffusion:
         self.dtype = COMPUTE_DTYPE if fp16 else torch.float32
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.module = random_module(VDiffusionUNet, self.config, self.device, gen, self.dtype)
+        path = find_checkpoint(f"velocity_diffusion_{name}", name)
+        if path is not None:
+            load_found(path, self.serving_modules(), self._from_jax, self.load_state_dict)
+
+    def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import vnet_state_dict_from_jax
+
+        return {"module": vnet_state_dict_from_jax(params, self.config)}
+
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules whose tensors `params` lists, by the same names."""
+        return {"module": self.module}
+
+    @property
+    def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{"module": the UNet's parameters and buffers by name}: the weights
+        argument of the exported programs."""
+        return {"module": serving.module_params(self.module)}
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Load a state_dict of `VDiffusionUNet`; the module keeps its
@@ -255,7 +277,8 @@ class VelocityDiffusion:
         (from_t, to_t) `pairs`."""
         self._check_method(method, eta, churn, correction)
         n = diffused.shape[0]
-        pairs = torch.as_tensor(np.asarray(pairs), dtype=torch.float32, device=self.device)
+        pairs = torch.as_tensor(pairs if isinstance(pairs, torch.Tensor) else np.asarray(pairs),
+                                dtype=torch.float32, device=self.device)
         cond = self._clip_embed(conditioning, n)
         if self.conditioned and cond is None:
             cond = torch.zeros((n, self.config.mapping.clip_dim), device=self.device)
@@ -283,7 +306,7 @@ class VelocityDiffusion:
 
         for i in range(pairs.shape[0]):
             from_t, to_t = pairs[i, 0].expand(n), pairs[i, 1].expand(n)
-            if churn > 0.0:
+            if isinstance(churn, torch.Tensor) or churn > 0.0:
                 # renoise toward from_t * (1 + churn) where from_t < 1
                 new_from = torch.clamp(from_t * (1.0 + churn), max=1.0)
                 renoised = predict(diffused, from_t).noisy_reverse_step(new_from, generator)
@@ -297,6 +320,57 @@ class VelocityDiffusion:
                 stepped = corrected.step(to_t, eta=eta, generator=generator)
             diffused = stepped
         return predict(diffused, pairs[-1, 1].expand(n)).denoised_images
+
+    @staticmethod
+    def sample_noise_shape(n_images: int, shape, n_steps: int, eta: float = 0.0,
+                           churn: float = 0.0, correction: bool = False) -> Tuple[int, ...]:
+        """The shape of `export_sample`'s `noise` argument: (draws, n_images,
+        *shape), one draw per step for the churn and, with eta > 0, one per
+        DDIM step and one per correction re-step; draw it with
+        `predictions.base.draw_noise` from the generator `sample_loop` would
+        use to get its numbers."""
+        per_step = (float(churn) > 0.0) + ((1 + bool(correction)) if float(eta) > 0.0 else 0)
+        return (n_steps * per_step, n_images, *shape)
+
+    def export_sample(self, n_images: int = 1, n_steps: int = 50, eta: float = 0.0,
+                      churn: float = 0.0, correction: bool = False, platforms=None) -> bytes:
+        """The DDIM sampler as a `torch.export` program (utils/serving.py),
+        as bytes. Its signature is `(params, diffused, pairs, conditioning,
+        noise, eta, churn) -> images`: `params` is `self.params`, `pairs`
+        the (n_steps, 2) fp32 schedule, `conditioning` the (n_images,
+        clip_dim) CLIP embedding of a conditioned checkpoint (None
+        otherwise), `noise` the pre-drawn step noise of `sample_noise_shape`
+        (empty when nothing is drawn), `eta` and `churn` 0-d fp32 tensors.
+        Whether eta and churn are above 0, and `correction`, are baked in;
+        the step loop is unrolled into the graph."""
+        stochastic, do_churn = float(eta) > 0.0, float(churn) > 0.0
+        noise_shape = self.sample_noise_shape(n_images, self.shape, n_steps, eta, churn,
+                                              correction)
+
+        @torch.no_grad()
+        def run(diffused, pairs, conditioning, noise, eta_arg, churn_arg):
+            return self.sample_loop(
+                diffused, pairs, conditioning, eta=eta_arg if stochastic else 0.0,
+                churn=churn_arg if do_churn else 0.0, correction=correction,
+                generator=NoiseStream(noise) if noise_shape[0] else None,
+            )
+
+        def serve(params, diffused, pairs, conditioning, noise, eta_arg, churn_arg):
+            return serving.functional(self.serving_modules(), params, run, diffused, pairs,
+                                      conditioning, noise, eta_arg, churn_arg)
+
+        cond = (torch.zeros((n_images, self.config.mapping.clip_dim), device=self.device)
+                if self.conditioned else None)
+        example = (
+            self.params,
+            torch.zeros((n_images, *self.shape), device=self.device),
+            torch.as_tensor(self.schedule_ts(n_steps), dtype=torch.float32, device=self.device),
+            cond,
+            torch.zeros(noise_shape, device=self.device),
+            torch.tensor(float(eta), device=self.device),
+            torch.tensor(float(churn), device=self.device),
+        )
+        return serving.serialize_program(serve, *example, platforms=platforms)
 
     @torch.no_grad()
     def reverse_sample(self, images, n_steps: int = 50, conditioning=None,

@@ -13,7 +13,7 @@ in the tree; `load_state_dict` takes torchvision's).
 from __future__ import annotations
 
 import functools
-from typing import List, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ from torch import nn
 
 from perceptor_tpu_torch.core.init import random_module, resolve_device
 from perceptor_tpu_torch.utils.cache import cache
+from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
              512, 512, 512, 512, "M", 512, 512, 512, 512, "M")
@@ -81,7 +82,9 @@ class VGGFeatures(nn.Module):
 @cache
 class VGG19:
     """The raw VGG19 trunk: `activations(images)` returns the six slice
-    taps, `forward` the last (pooled) one."""
+    taps, `forward` the last (pooled) one. Its weights are those of the
+    checkpoint `find_checkpoint("vgg19", "vgg19_features")` finds, else
+    seeded random."""
 
     def __init__(self, device="cuda", seed: int = 0):
         self.device = resolve_device(device)
@@ -90,6 +93,19 @@ class VGG19:
             functools.partial(VGGFeatures, taps=VGG19_TAPS), VGG19_CFG, self.device, generator,
             torch.float32,
         )
+        path = find_checkpoint("vgg19", "vgg19_features")
+        if path is not None:
+            load_found(path, {"module": self.module}, self._from_jax, self._load_upstream)
+
+    @staticmethod
+    def _from_jax(params) -> Dict[str, Dict[str, torch.Tensor]]:
+        from perceptor_tpu_torch.convert import vgg_state_dict_from_jax
+
+        return {"module": vgg_state_dict_from_jax(params)}
+
+    def _load_upstream(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """A whole torchvision vgg19 state_dict: its `features.*`."""
+        self.load_state_dict({k: v for k, v in state_dict.items() if k.startswith("features.")})
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """torchvision's `features.{i}.weight` / `.bias` (a whole vgg19

@@ -1,5 +1,5 @@
 """Flash attention: three hand-written CUDA kernels for Hopper, their plain
-PyTorch versions, and the autograd.Function that joins them.
+PyTorch versions, and the registered ops that join them.
 
 Counterpart of perceptor_tpu/ops/flash_attention_kernel.py (Pallas TPU):
 
@@ -13,11 +13,17 @@ their gradients and the accumulators in registers), `flash_attention.cu`
 the C interface and the fp32 kernels. Every source there is compiled by
 nvcc for sm_90a into one library in `build/` at first use and loaded with
 ctypes.
-On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. Each wrapper counts its kernel launches in
-`LAUNCHES`. `_TILES` is the one table of tile sizes: each launch passes its
-(block_q, block_k) pair, and the C dispatch refuses a pair it has not
-instantiated.
+
+Each kernel is an op of the `perceptor_tpu_torch` library
+(`torch.library.custom_op`: `perceptor_tpu_torch::flash_fwd`, `::flash_dq`,
+`::flash_dkv`): on a CUDA tensor its CUDA implementation launches the kernel
+(or raises) and counts the launch in `LAUNCHES`; on a CPU tensor its CPU
+implementation is the plain version; a fake implementation gives tracing
+the output shapes, and `register_autograd` joins the forward to the two
+backward ops. So `torch.export` keeps each kernel as one node of its graph,
+and a loaded program counts its launches as the eager path does. `_TILES`
+is the one table of tile sizes: each launch passes its (block_q, block_k)
+pair, and the C dispatch refuses a pair it has not instantiated.
 
 Backward: the two-kernel scheme of the JAX package. The residuals
 (q, k, v, o, lse) let each kernel recompute p = exp(scale * q k^T - lse)
@@ -296,19 +302,31 @@ def kernel_info(kernel: str, d: int, dtype: torch.dtype) -> dict:
     return {"block_q": bq, "block_k": bk, **dict(zip(keys, info))}
 
 
-# -- wrappers --------------------------------------------------------------
+# -- the registered ops ----------------------------------------------------
+#
+# The three kernels are ops of the `perceptor_tpu_torch` library
+# (`torch.library.custom_op`): the CUDA implementation launches the kernel
+# and counts the launch, the CPU implementation is the plain version, the
+# fake implementation gives the output shapes to tracing (`torch.export`,
+# FakeTensorMode), and `register_autograd` joins forward and backward. So an
+# exported program holds each kernel as one graph node, and a loaded program
+# counts its launches in `LAUNCHES` like the eager path. A process that loads
+# such a program must import `perceptor_tpu_torch` first, which registers
+# the ops.
 
 
-def _device_check(q):
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {q.device}")
-    return q.device.type == "cuda"
+def _cuda_stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
-def flash_forward(q, k, v, scale: float):
-    """(o, lse) for (B, H, S, D) inputs; lse is (B, H, Sq) fp32."""
-    if not _device_check(q):
-        return flash_forward_plain(q, k, v, scale)
+@torch.library.custom_op("perceptor_tpu_torch::flash_fwd", mutates_args=(), device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_forward_plain(q, k, v, scale)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, scale):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _check_cuda_inputs([("q", q), ("k", k), ("v", v)], [sq, sk, sk])
@@ -319,11 +337,17 @@ def flash_forward(q, k, v, scale: float):
         err = _library().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, sq, sk, d, _strides(q, k, v), float(scale), q.dtype == torch.float32,
-            bq, bk, torch.cuda.current_stream(q.device).cuda_stream,
+            bq, bk, _cuda_stream(q),
         )
     _raise_on_error("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
     return o, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale):
+    b, h, sq, d = q.shape
+    return q.new_empty((b, h, sq, d)), q.new_empty((b, h, sq), dtype=torch.float32)
 
 
 def _bwd_checks(q, k, v, do, lse, delta, kernel):
@@ -336,29 +360,41 @@ def _bwd_checks(q, k, v, do, lse, delta, kernel):
     return b, h, sq, sk, d, bq, bk
 
 
-def flash_dq(q, k, v, do, lse, delta, scale: float):
-    """dq of softmax(scale q k^T) v given the forward's lse and
-    delta = rowsum(o * do) in fp32."""
-    if not _device_check(q):
-        return flash_dq_plain(q, k, v, do, lse, delta, scale)
+@torch.library.custom_op("perceptor_tpu_torch::flash_dq", mutates_args=(), device_types="cpu")
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                 lse: torch.Tensor, delta: torch.Tensor, scale: float) -> torch.Tensor:
+    return flash_dq_plain(q, k, v, do, lse, delta, scale)
+
+
+@_flash_dq_op.register_kernel("cuda")
+def _flash_dq_cuda(q, k, v, do, lse, delta, scale):
     b, h, sq, sk, d, bq, bk = _bwd_checks(q, k, v, do, lse, delta, "dq")
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _library().flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d, _strides(q, k, v, do),
-            float(scale), q.dtype == torch.float32, bq, bk,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            float(scale), q.dtype == torch.float32, bq, bk, _cuda_stream(q),
         )
     _raise_on_error("flash_dq", err)
     LAUNCHES["flash_dq"] += 1
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, scale: float):
-    """(dk, dv) of softmax(scale q k^T) v, same inputs as `flash_dq`."""
-    if not _device_check(q):
-        return flash_dkv_plain(q, k, v, do, lse, delta, scale)
+@_flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("perceptor_tpu_torch::flash_dkv", mutates_args=(), device_types="cpu")
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                  lse: torch.Tensor, delta: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_dkv_plain(q, k, v, do, lse, delta, scale)
+
+
+@_flash_dkv_op.register_kernel("cuda")
+def _flash_dkv_cuda(q, k, v, do, lse, delta, scale):
     b, h, sq, sk, d, bq, bk = _bwd_checks(q, k, v, do, lse, delta, "dkv")
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=v.device)
@@ -367,34 +403,66 @@ def flash_dkv(q, k, v, do, lse, delta, scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
             _strides(q, k, v, do), float(scale), q.dtype == torch.float32, bq, bk,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _cuda_stream(q),
         )
     _raise_on_error("flash_dkv", err)
     LAUNCHES["flash_dkv"] += 1
     return dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Counterpart of the JAX `_flash` custom VJP: saves (q, k, v, o, lse)."""
+@_flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, scale):
+    return (torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = flash_forward(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if do.is_cuda and (
-            do.stride(3) != 1 or any(s * do.element_size() % 16 for s in do.stride()[:3])
-        ):
-            do = do.contiguous()
-        delta = (o.float() * do.float()).sum(dim=-1)
-        dq = flash_dq(q, k, v, do, lse, delta, ctx.scale)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.scale = scale
+
+
+def _backward(ctx, do, _dlse):
+    """The JAX `_flash` custom VJP's backward: delta = rowsum(o * do) in
+    fp32, then dq and (dk, dv); lse takes no gradient."""
+    q, k, v, o, lse = ctx.saved_tensors
+    if do.is_cuda and (
+        do.stride(3) != 1 or any(s * do.element_size() % 16 for s in do.stride()[:3])
+    ):
+        do = do.contiguous()
+    delta = (o.float() * do.float()).sum(dim=-1)
+    dq = _flash_dq_op(q, k, v, do, lse, delta, ctx.scale)
+    dk, dv = _flash_dkv_op(q, k, v, do, lse, delta, ctx.scale)
+    return dq, dk, dv, None
+
+
+_flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _device_check(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def flash_forward(q, k, v, scale: float):
+    """(o, lse) for (B, H, S, D) inputs; lse is (B, H, Sq) fp32. The
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    _device_check(q)
+    return _flash_fwd_op(q, k, v, float(scale))
+
+
+def flash_dq(q, k, v, do, lse, delta, scale: float):
+    """dq of softmax(scale q k^T) v given the forward's lse and
+    delta = rowsum(o * do) in fp32."""
+    _device_check(q)
+    return _flash_dq_op(q, k, v, do, lse, delta, float(scale))
+
+
+def flash_dkv(q, k, v, do, lse, delta, scale: float):
+    """(dk, dv) of softmax(scale q k^T) v, same inputs as `flash_dq`."""
+    _device_check(q)
+    return _flash_dkv_op(q, k, v, do, lse, delta, float(scale))
 
 
 HEAD_DIM_MULTIPLE = 8
@@ -418,5 +486,5 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     pad = -d % HEAD_DIM_MULTIPLE
     if pad:
         q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
-    out = _FlashAttention.apply(q, k, v, float(scale))
+    out = flash_forward(q, k, v, float(scale))[0]  # differentiable: the op's autograd
     return out[..., :d] if pad else out

@@ -31,11 +31,48 @@ def expand_like_batch(values, reference: torch.Tensor) -> torch.Tensor:
     return values.reshape(values.shape[0], *([1] * (reference.ndim - 1)))
 
 
-def randn_like(reference: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+class NoiseStream:
+    """Pre-drawn noise standing where a `torch.Generator` would: the i-th
+    `randn_like` call takes `draws[i]`. An exported program cannot take a
+    generator, so it takes the noise its sampler would draw as a tensor,
+    drawn beforehand by `draw_noise` from the generator the eager sampler
+    would use, in the same order and shapes, hence the same numbers."""
+
+    def __init__(self, draws: torch.Tensor):
+        self.draws = draws
+        self.index = 0
+
+    def next(self, reference: torch.Tensor) -> torch.Tensor:
+        if self.index >= self.draws.shape[0]:
+            raise ValueError(f"the noise holds {self.draws.shape[0]} draws; the sampler "
+                             "asked for more")
+        out = self.draws[self.index]
+        if out.shape != reference.shape:
+            raise ValueError(f"noise draw of shape {tuple(out.shape)}, the sampler needs "
+                             f"{tuple(reference.shape)}")
+        self.index += 1
+        return out.to(reference.dtype)
+
+
+def draw_noise(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    """(n, *draw_shape) standard normal noise from `generator`, drawn one
+    draw at a time as `randn_like` would draw it (so the numbers are the
+    eager sampler's); an empty tensor when n is 0."""
+    n, *draw_shape = shape
+    if n == 0:
+        return torch.zeros(shape, dtype=dtype, device=generator.device)
+    return torch.stack([torch.randn(draw_shape, generator=generator, device=generator.device,
+                                    dtype=dtype) for _ in range(n)])
+
+
+def randn_like(reference: torch.Tensor, generator) -> torch.Tensor:
     """Standard normal noise of `reference`'s shape, dtype and device from
-    `generator`, which must be given."""
+    `generator` (a `torch.Generator` or a `NoiseStream`), which must be
+    given."""
     if generator is None:
         raise ValueError("stochastic methods need an explicit generator=")
+    if isinstance(generator, NoiseStream):
+        return generator.next(reference)
     return torch.randn(
         reference.shape, generator=generator, device=reference.device, dtype=reference.dtype
     )
@@ -92,9 +129,10 @@ class PredictionAlgebra:
 
     def step(self, to, eta: float = 0.0, generator: Optional[torch.Generator] = None):
         """DDIM update to noise level `to`; eta > 0 adds fresh noise from
-        `generator`."""
+        `generator`. A tensor `eta` (an exported program's argument) always
+        takes the stochastic branch."""
         to_alphas, to_sigmas = self.alphas(to), self.sigmas(to)
-        if eta > 0.0:
+        if isinstance(eta, torch.Tensor) or eta > 0.0:
             ddim_sigma = (
                 eta
                 * torch.sqrt(to_sigmas**2 / self.from_sigmas**2)

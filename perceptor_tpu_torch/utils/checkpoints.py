@@ -14,7 +14,7 @@ sentinel) stays a numpy array.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -31,7 +31,8 @@ _SUFFIXES = (".safetensors", ".npz", ".pt", ".pth", ".ckpt", ".bin", ".pkl")
 def find_checkpoint(*names: str) -> Optional[str]:
     """The first existing checkpoint among candidate basenames: a name that
     is a path as it stands, else each cache directory in order, with the
-    name's own suffix or each of `_SUFFIXES`."""
+    name's own suffix or each of `PORT_SUFFIX` (the port's own artifacts)
+    and `_SUFFIXES`."""
     for name in names:
         if not name:
             continue
@@ -43,7 +44,7 @@ def find_checkpoint(*names: str) -> Optional[str]:
             candidates: Iterable[str] = (
                 [os.path.join(cache_dir, name)]
                 if os.path.splitext(name)[1]
-                else [os.path.join(cache_dir, name + sfx) for sfx in _SUFFIXES]
+                else [os.path.join(cache_dir, name + sfx) for sfx in (PORT_SUFFIX, *_SUFFIXES)]
             )
             for path in candidates:
                 if os.path.exists(path):
@@ -176,3 +177,88 @@ def native_params(state_dict: Dict) -> Optional[Dict]:
     if NATIVE_FORMAT_KEY not in state_dict:
         return None
     return unflatten_params({k: v for k, v in state_dict.items() if k != NATIVE_FORMAT_KEY})
+
+
+# -- the port's own artifacts and the discovery loader ----------------------
+
+# The port's converter writes `<canonical basename>.torch.pt`: torch.save of
+# {PORT_FORMAT_KEY: PORT_FORMAT, "modules": {name: state_dict}} in the
+# modules' own names and dtypes. The JAX package's `find_checkpoint` tries a
+# name as it stands or with one of `_SUFFIXES`, so it never finds this file
+# in the cache directories the two packages share.
+PORT_SUFFIX = ".torch.pt"
+PORT_FORMAT_KEY = "__perceptor_tpu_torch_format__"
+PORT_FORMAT = "state-dicts-v1"
+
+
+def save_port_artifact(path: str, modules: Dict[str, torch.nn.Module]) -> str:
+    """Write the state dicts of `modules` as a port artifact at `path`
+    (`PORT_SUFFIX` appended when missing); returns the path written."""
+    if not path.endswith(PORT_SUFFIX):
+        path += PORT_SUFFIX
+    torch.save({PORT_FORMAT_KEY: PORT_FORMAT,
+                "modules": {name: m.state_dict() for name, m in modules.items()}}, path)
+    return path
+
+
+def _port_artifact(path: str) -> Optional[Dict]:
+    if not path.endswith(PORT_SUFFIX):
+        return None
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(obj, dict) and obj.get(PORT_FORMAT_KEY) == PORT_FORMAT):
+        raise ValueError(f"{path} is not a {PORT_FORMAT} artifact of the port")
+    return obj["modules"]
+
+
+def strip_prefix(state_dict: Dict, prefix: str) -> Dict:
+    """The entries under `prefix`, with it removed."""
+    return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+
+
+def _exact(state_dict: Dict, modules: Dict[str, torch.nn.Module]) -> Optional[Dict]:
+    """`state_dict` split by module when its keys are exactly the modules'
+    (a single module's own keys, or `<name>.<key>` for several), else None."""
+    if len(modules) == 1:
+        (name, module), = modules.items()
+        return {name: state_dict} if set(state_dict) == set(module.state_dict()) else None
+    wanted = {f"{name}.{key}" for name, m in modules.items() for key in m.state_dict()}
+    if set(state_dict) != wanted:
+        return None
+    return {name: {key[len(name) + 1:]: value for key, value in state_dict.items()
+                   if key.startswith(name + ".")} for name in modules}
+
+
+def load_found(path: str, modules: Dict[str, torch.nn.Module],
+               from_jax: Optional[Callable[[Dict], Dict[str, Dict]]] = None,
+               from_upstream: Optional[Callable[[Dict], None]] = None) -> str:
+    """Load the checkpoint `find_checkpoint` found into `modules` ({name:
+    module}) and return the route taken:
+
+    - "port": an artifact of the port's converter, loaded as it stands;
+    - "params-v1": the JAX package's pre-converted artifact
+      (`native_params`), through `from_jax(params) -> {name: state_dict}`;
+    - "exact": a state dict whose keys are exactly the modules';
+    - "upstream": anything else, handed to `from_upstream(state_dict)`, the
+      wrapper's loader of the upstream layout (its key maps).
+
+    Every module load is `strict`; each module keeps its storage dtypes."""
+    states = _port_artifact(path)
+    route = "port"
+    if states is None:
+        state_dict = load_state_dict(path)
+        native = native_params(state_dict)
+        if native is not None:
+            if from_jax is None:
+                raise ValueError(f"{path}: this wrapper reads no params-v1 artifact")
+            states, route = from_jax(native), "params-v1"
+        else:
+            states, route = _exact(state_dict, modules), "exact"
+            if states is None:
+                if from_upstream is None:
+                    raise ValueError(f"{path}: its keys are not the module's and this "
+                                     "wrapper has no key map")
+                from_upstream(state_dict)
+                return "upstream"
+    for name, module in modules.items():
+        module.load_state_dict(states[name], strict=True)
+    return route

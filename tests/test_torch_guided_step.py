@@ -146,7 +146,8 @@ def test_tiny_guided_steps_stay_finite():
 def test_port_imports_no_jax():
     """Every module of the port, chip_smoke.py and bench_cuda.py import
     without jax, flax, optax or perceptor_tpu; the entry points by name too,
-    the lazily exported ones resolved."""
+    the lazily exported ones resolved, the sessions, stats and serving
+    modules among them, and the converter CLI runs its `--help`."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import perceptor_tpu_torch, chip_smoke, bench_cuda\n"
@@ -182,7 +183,8 @@ def test_port_imports_no_jax():
         "             'ops.fma', 'ops.bias_act', 'ops.gradfix', 'ops.filtered_lrelu',\n"
         "             'ops.conv2d_resample', 'ops.grid_sample', 'models.stylegan_xl',\n"
         "             'drawers.stylegan_xl', 'utils.checkpoints', 'utils.native_io',\n"
-        "             'utils.pil_image'):\n"
+        "             'utils.pil_image', 'utils.session', 'utils.stats', 'utils.serving',\n"
+        "             'convert'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
@@ -200,6 +202,15 @@ def test_port_imports_no_jax():
         "o = perceptor_tpu_torch.ops\n"
         "o.bias_act, o.filtered_lrelu, o.conv2d_resample, o.grid_sample, o.flow_warp, o.fma\n"
         "from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_state_dict\n"
+        "from perceptor_tpu_torch.utils import SessionManager, save_session, load_session\n"
+        "from perceptor_tpu_torch.utils import serving, stats\n"
+        "serving.serialize_program, stats.Collector, engine.export_guided_sample\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    try:\n"
+        "        perceptor_tpu_torch.convert.main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
         "from perceptor_tpu_torch.utils.native_io import native_available, read_span\n"
         "from perceptor_tpu_torch.models.stable_diffusion import Conditioning\n"
         "ld = models.latent_diffusion\n"
