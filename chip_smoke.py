@@ -239,7 +239,37 @@ exits non-zero without a result line:
    serving_guided_sample  `engine.export_guided_sample` over the same model
                   under the guided step's CLIP loss, 1 step without CFG:
                   the flash ops as graph nodes, 11 / 11 / 11 launches a step,
-                  latents and losses against the live `guided_sample`;
+                  latents and losses against the live `guided_sample`; then
+                  with 4 random 224px cutouts as the image augment, their
+                  uniforms drawn by `engine.draw_guided_noise`: bitwise the
+                  live sampler on the same generator;
+   routing_report  (after guided_step) `parallel.explain` over one guided
+                  step on fake CUDA tensors: its flash records equal SITES
+                  (11 sites: (4096, 4096, 8) x5, (1024, 1024, 8) x5,
+                  (4096, 4096, 1) x1), the summary printed;
+   mesh_sample    (after serving_conditioning) a one-rank NCCL world
+                  (`parallel.initialize_distributed` on localhost, a free
+                  port): `sample(mesh=)` at 512px, 2 DDIM steps with CFG, on
+                  `create_mesh(data=-1)` and on a tensor=1 / context=1 mesh,
+                  against `sample()` on the same generator (bitwise, or
+                  within 1e-3), 10 / 0 / 0 launches a CFG evaluation plus the
+                  decode's; `engine.guided_sample(mesh=)`, 1 step, against the
+                  live one, 11 / 11 / 11; ms of both paths (a mesh's first
+                  call, which places the weights, apart) and the host ops of
+                  a mesh call with the weights placed anew and kept; the
+                  collective inventory of one traced mesh step;
+   parallel_collectives  in the same world, each on a one-rank mesh:
+                  `ring_attention`, `ulysses_attention` (77 keys) and a
+                  `pipeline` of 2 microbatches, forward and backward on bf16
+                  inputs at SD's level-0 shape (1, 8, 4096, 40) against
+                  their plain counterparts on the same inputs (the ring's
+                  and the flash kernels' in fp32 arithmetic, Ulysses' plain
+                  bf16 attention and the bf16 stages in their own), 2e-2 of
+                  the largest magnitude, and the flash kernels through
+                  DTensor (batch- and head-sharded operands), then
+                  `destroy_process_group`.
+                  Multi-rank runs are the CPU tests' (gloo worlds of 2 and 4):
+                  this machine has one card;
    training_stats a `utils.stats.Collector` over the guided runs' losses, its mean and
                   std against numpy's; serving_conditioning, the text
                   encoder's program against the live encoder;
@@ -416,6 +446,11 @@ PER_STEP = {
     # the text-conditioning program (a masked S = 77 tower) and yfcc_2's
     # sampler (attention at 16 x 16 tokens and below) launch none
     "serving_guided_sample": {"flash_fwd": 11, "flash_dq": 11, "flash_dkv": 11},
+    # `sample(mesh=)` and `guided_sample(mesh=)` on a one-rank mesh: the
+    # unsharded paths' launches (per batched CFG UNet evaluation, the decode
+    # apart; per guided step without CFG)
+    "mesh_sample": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
+    "mesh_guided_sample": {"flash_fwd": 11, "flash_dq": 11, "flash_dkv": 11},
     "serving_conditioning": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     "serving_velocity": {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
     # the session and discovery phases: CLIP ViT-B/32's 50 tokens
@@ -605,6 +640,17 @@ SERVING_STEPS = 1
 SERVING_GUIDED_STEPS = 1
 SERVING_VELOCITY_MODEL = "yfcc_2"
 SERVING_ATOL = 1e-3
+SERVING_CUTOUTS = 4
+# the mesh paths on one rank: the unsharded sampler's arithmetic, so bitwise
+# is expected; MESH_ATOL gates it where a gathered weight's storage changes a
+# library's algorithm choice (printed with the reason)
+MESH_STEPS = 2
+MESH_ATOL = 1e-3
+# ring / Ulysses / pipeline on one rank, bf16 inputs, against plain
+# attention and the sequential stages on the same inputs: KERNEL_RTOL
+COLLECTIVE_SHAPE = (1, 8, 4096, 40)
+COLLECTIVE_KV = 77
+PIPELINE_WIDTH = 320
 SESSION_STEPS = 6
 SESSION_CUTOUTS = 8
 DISCOVERY_WEIGHTS = "laion2b_s34b_b79k"
@@ -3618,8 +3664,9 @@ def phase_serving_guided_sample(fa, sd, step):
         raise AssertionError(f"serving_guided_sample: loaded program off the live by {diffs}")
     graph_ops = sorted({str(n.target) for n in torch.export.load(io.BytesIO(blob)).graph.nodes
                         if "perceptor_tpu_torch" in str(n.target)})
+    cutouts = serving_cutouts(fa, sd, loss, latents, pairs, cond)
     emit({
-        "phase": "serving_guided_sample", "ok": True, "steps": len(pairs),
+        "phase": "serving_guided_sample", "ok": True, "steps": len(pairs), "cutouts": cutouts,
         "export_s": export_s, "load_s": load_s, "artifact_bytes": len(blob),
         "weight_bytes": _weight_bytes(sd.params), "graph_flash_ops": graph_ops,
         "bitwise": bool(torch.equal(served, live) and torch.equal(served_losses, live_losses)),
@@ -3628,6 +3675,301 @@ def phase_serving_guided_sample(fa, sd, step):
         "launches": launches, "launches_per_step": measured,
     })
     return launches, measured, served_losses
+
+
+def serving_cutouts(fa, sd, loss, latents, pairs, cond) -> dict:
+    """`export_guided_sample` with SERVING_CUTOUTS random CUT_SIZE cutouts
+    as the image augment, its uniforms drawn by `draw_guided_noise` from a
+    generator: bitwise the live `guided_sample` on the same generator, the
+    guided step's launches a step."""
+    import torch
+
+    from perceptor_tpu_torch.engine import draw_guided_noise, export_guided_sample, guided_sample
+    from perceptor_tpu_torch.transforms import RandomCutouts
+    from perceptor_tpu_torch.utils import serving
+
+    augment = RandomCutouts(SERVING_CUTOUTS, CUT_SIZE)
+    program = serving.load_program(
+        export_guided_sample(sd, [loss], latents, pairs, cond, image_augment=augment))
+    noise = draw_guided_noise(torch.Generator(sd.device).manual_seed(9), latents, len(pairs),
+                              image_augment=augment)
+    args = (sd.params, latents, torch.as_tensor(pairs, device=sd.device),
+            [serving.object_params(loss)], cond, noise, torch.tensor(0.5, device=sd.device),
+            torch.tensor(0.0, device=sd.device))
+    program(*args)  # warm-up
+    fa.reset_launches()
+    (served, served_losses), served_ms = timed_ms(lambda: program(*args))
+    measured = per_step(dict(fa.LAUNCHES), len(pairs))
+    check_per_step("serving_guided_sample", measured)
+    (live, live_losses), live_ms = timed_ms(lambda: guided_sample(
+        sd, [loss], latents, pairs, cond, guidance_scale=0.5, image_augment=augment,
+        generator=torch.Generator(sd.device).manual_seed(9)))
+    if not (torch.equal(served, live) and torch.equal(served_losses, live_losses)):
+        raise AssertionError(
+            f"serving_guided_sample cutouts: not bitwise the live sampler "
+            f"({_max_diff(served, live)}, {_max_diff(served_losses, live_losses)})")
+    return {"n_cutouts": SERVING_CUTOUTS, "cut_size": CUT_SIZE, "bitwise": True,
+            "noise_shape": list(noise.shape), "losses": served_losses.tolist(),
+            "loaded_ms_per_step": served_ms / len(pairs), "live_ms_per_step": live_ms / len(pairs),
+            "launches_per_step": measured}
+
+
+def phase_routing_report(step) -> None:
+    """`parallel.explain` over one guided step on fake CUDA tensors (no
+    kernel runs): the flash records against SITES, the summary printed."""
+    from perceptor_tpu_torch import parallel
+
+    latents, context = step.initial_inputs()
+    t0 = time.perf_counter()
+    report = parallel.explain(step.guided_denoise_step, latents, context)
+    seconds = time.perf_counter() - t0
+    flash = {rec.shape: rec.count for rec in report
+             if rec.site == "attention" and rec.route == "flash"}
+    want = {(s, s, h): n for _, _, h, s, _, n in SITES}
+    if flash != want or sum(flash.values()) != PER_STEP["guided_step"]["flash_fwd"]:
+        raise AssertionError(f"routing_report: flash records {flash}, SITES {want}")
+    print(report.summary(), flush=True)
+    emit({"phase": "routing_report", "ok": True, "seconds": seconds,
+          "flash": {str(k): n for k, n in flash.items()}, "routes": {
+              str(k): n for k, n in report.routes().items()}})
+
+
+def traced_mesh_step(sd, mesh, latents, context2) -> dict:
+    """The collective inventory of one CFG sampling step under `mesh`: the
+    weights placed by the rules, gathered at each layer's call
+    (`parallel.partition`), traced by make_fx."""
+    import torch
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from perceptor_tpu_torch.parallel.partition import gathered_params, placed_params
+    from perceptor_tpu_torch.utils import hlo
+
+    sharded = {part: placed_params(module, mesh)
+               for part, module in sd.serving_modules().items()}
+    pairs = torch.as_tensor(sd.schedule_indices(MESH_STEPS), device=sd.device)
+    from_idx, to_idx = pairs[0, 0].expand(1), pairs[0, 1].expand(1)
+
+    def step(x):
+        with gathered_params(sd.serving_modules(), sharded):
+            return sd.cfg_predictions(x, from_idx, context2, CFG_SCALE).step(to_idx)
+
+    with torch.no_grad():
+        graph = make_fx(step)(latents)
+    return {"collective_counts": hlo.collective_counts(graph),
+            "max_gather_elements": hlo.max_gather_elements(graph),
+            "ici_bytes": hlo.program_ici_bytes(graph)}
+
+
+def phase_mesh_sample(fa, sd, step):
+    """A one-rank process group on the card, `sample(mesh=)` and
+    `guided_sample(mesh=)` against the unsharded paths. Returns ({path:
+    launches}, {path: launches per step})."""
+    import torch
+    import torch.distributed as dist
+
+    from perceptor_tpu_torch import parallel
+    from perceptor_tpu_torch.engine import guided_sample
+
+    address = f"localhost:{parallel.mesh.free_port()}"
+    parallel.initialize_distributed(address, 1, 0, device=sd.device)
+    meshes = {"data": parallel.create_mesh(data=-1),
+              "tensor_context": parallel.create_mesh(data=-1, tensor=1, context=1)}
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+
+    def generator(seed):
+        return torch.Generator(device=sd.device).manual_seed(seed)
+
+    def sample(mesh):
+        return sd.sample([PROMPT], n_steps=MESH_STEPS, size=size, guidance_scale=CFG_SCALE,
+                         generator=generator(0), mesh=mesh)
+
+    first_ms = {}
+    for name, mesh in meshes.items():  # the first call places the weights
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample(mesh)
+        torch.cuda.synchronize()
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+    k = len(sd.schedule_indices(MESH_STEPS))
+    want = {name: PER_STEP["mesh_sample"][name] * k + PER_VAE_CALL[name] for name in REPLACES}
+    runs, launches = {}, {}
+    for name, mesh in (("plain", None), *meshes.items()):
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        images = sample(mesh)
+        torch.cuda.synchronize()
+        runs[name] = (images, (time.perf_counter() - t0) * 1e3)
+        launches[name] = dict(fa.LAUNCHES)
+        if launches[name] != want:
+            raise AssertionError(f"mesh_sample {name}: launches {launches[name]}, want {want}")
+    checks = {}
+    for name in meshes:
+        images = runs[name][0]
+        bitwise = torch.equal(images, runs["plain"][0])
+        diff = _max_diff(images, runs["plain"][0])
+        if not torch.isfinite(images).all() or (not bitwise and diff > MESH_ATOL):
+            raise AssertionError(f"mesh_sample {name}: images off the unsharded by {diff}")
+        checks[name] = {"bitwise": bool(bitwise), "max_abs_diff": diff}
+        if not bitwise:
+            print(f"mesh_sample {name}: within {diff} of sample(), not bitwise: the gathered "
+                  "weights are new tensors, and a library may choose another algorithm for "
+                  "them", flush=True)
+    # where a call's host time goes, with the weights placed anew (cold)
+    # and kept from the call before (warm)
+    from perceptor_tpu_torch.parallel import partition
+
+    partition._PLACED.clear()
+    host = {"cold": host_profile(lambda: sample(meshes["data"])),
+            "warm": host_profile(lambda: sample(meshes["data"]))}
+    # guided: 1 step without CFG under the guided step's CLIP loss
+    cond = sd.conditioning([PROMPT])
+    latents = sd.random_diffused_latents((1, *size), generator(5))
+    pairs = sd.schedule_indices(1)
+    live, live_ms = timed_ms(lambda: guided_sample(sd, [step.clip_loss], latents, pairs, cond,
+                                                   guidance_scale=0.5))
+    guided_sample(sd, [step.clip_loss], latents, pairs, cond, guidance_scale=0.5,
+                  mesh=meshes["data"])  # warm-up
+    fa.reset_launches()
+    meshed, mesh_ms = timed_ms(lambda: guided_sample(sd, [step.clip_loss], latents, pairs, cond,
+                                                     guidance_scale=0.5, mesh=meshes["data"]))
+    guided_launches = dict(fa.LAUNCHES)
+    guided_measured = per_step(guided_launches, len(pairs))
+    check_per_step("mesh_guided_sample", guided_measured)
+    guided = {part: {"bitwise": bool(torch.equal(a, b)), "max_abs_diff": _max_diff(a, b)}
+              for part, a, b in (("latents", meshed[0], live[0]), ("losses", meshed[1], live[1]))}
+    if any(not g["bitwise"] and g["max_abs_diff"] > MESH_ATOL for g in guided.values()):
+        raise AssertionError(f"mesh_guided_sample: off the live sampler: {guided}")
+    context2 = torch.cat([sd.conditioning([""]), sd.conditioning([PROMPT])])
+    t0 = time.perf_counter()
+    traced = traced_mesh_step(sd, meshes["data"], latents, context2)
+    traced["trace_s"] = time.perf_counter() - t0
+    print(f"mesh_sample traced step: collective_counts {traced['collective_counts']} "
+          f"max_gather_elements {traced['max_gather_elements']}", flush=True)
+    emit({
+        "phase": "mesh_sample", "ok": True, "backend": dist.get_backend(), "address": address,
+        "world_size": dist.get_world_size(),
+        "meshes": {name: str(mesh) for name, mesh in meshes.items()}, "steps": k,
+        "images": checks, "ms_per_image": {name: run[1] for name, run in runs.items()},
+        "first_call_ms": first_ms, "host_profile": host,
+        "launches": launches, "guided": guided, "guided_ms_per_step": {
+            "live": live_ms / len(pairs), "mesh": mesh_ms / len(pairs)},
+        "guided_launches_per_step": guided_measured, "traced_step": traced,
+    })
+    per_eval = {name: (launches["data"][name] - PER_VAE_CALL[name]) / k for name in REPLACES}
+    return ({"mesh_sample": launches["data"], "mesh_guided_sample": guided_launches},
+            {"mesh_sample": per_eval, "mesh_guided_sample": guided_measured})
+
+
+def host_profile(fn, top: int = 8) -> dict:
+    """`fn()` once under torch.profiler's CPU activity: its wall ms and the
+    `top` host ops by self CPU time (ms, calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {"wall_ms": wall_ms, "top": [
+        {"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3, "count": e.count}
+        for e in ops[:top]]}
+
+
+def _rel_max(got, want) -> float:
+    """max |got - want| over max |want| (KERNEL_RTOL's measure)."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def phase_parallel_collectives(fa) -> None:
+    """ring_attention, ulysses_attention and pipeline on a one-rank mesh in
+    the process group `phase_mesh_sample` brought up, forward and backward
+    against their plain counterparts in bf16, and the flash kernels called
+    on DTensors (their registered sharding strategies); then the process
+    group is destroyed."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from perceptor_tpu_torch import parallel
+    from perceptor_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, s, d = COLLECTIVE_SHAPE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
+    k77, v77 = randn(b, h, COLLECTIVE_KV, d), randn(b, h, COLLECTIVE_KV, d)
+    mesh = parallel.create_mesh(data=-1)
+
+    def forward_backward(fn, *args):
+        args = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*args)
+        probe = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(3),
+                            device="cuda")
+        grads = torch.autograd.grad((out.float() * probe).sum(), args)
+        return out.detach(), grads
+
+    records = {}
+    # the ring's recurrence runs in fp32, Ulysses' local attention is the
+    # plain bf16 path (both as in JAX): each against that arithmetic
+    for name, fn, args, dtype in (
+        ("ring_attention", lambda *a: parallel.ring_attention(*a, mesh), (q, k, v),
+         torch.float32),
+        ("ulysses_attention", lambda *a: parallel.ulysses_attention(*a, mesh), (q, k77, v77),
+         torch.bfloat16),
+    ):
+        (out, grads), ms = timed_ms(lambda: forward_backward(fn, *args))
+        ref, ref_grads = forward_backward(dot_product_attention, *(a.to(dtype) for a in args))
+        errs = [_rel_max(out, ref)] + [_rel_max(g, r) for g, r in zip(grads, ref_grads)]
+        if max(errs) > KERNEL_RTOL:
+            raise AssertionError(f"parallel_collectives {name}: {errs} > {KERNEL_RTOL}")
+        records[name] = {"rel_err": errs, "ms_fwd_bwd": ms}
+    stages = parallel.create_mesh(data=-1, stage=1)
+    x = randn(2, s, PIPELINE_WIDTH)
+    w = randn(1, PIPELINE_WIDTH, PIPELINE_WIDTH) * 0.05
+    bias = randn(1, PIPELINE_WIDTH) * 0.1
+
+    def stage_fn(p, hidden):
+        return hidden + torch.tanh(hidden @ p["w"] + p["b"])
+
+    (out, grads), ms = timed_ms(lambda: forward_backward(
+        lambda w_, b_, x_: parallel.pipeline(stage_fn, {"w": w_, "b": b_}, x_, stages, 2),
+        w, bias, x))
+    ref, ref_grads = forward_backward(lambda w_, b_, x_: stage_fn({"w": w_[0], "b": b_[0]}, x_),
+                                      w, bias, x)
+    errs = [_rel_max(out, ref)] + [_rel_max(g, r) for g, r in zip(grads, ref_grads)]
+    if max(errs) > KERNEL_RTOL:
+        raise AssertionError(f"parallel_collectives pipeline: {errs} > {KERNEL_RTOL}")
+    records["pipeline"] = {"rel_err": errs, "ms_fwd_bwd": ms, "stages": 1, "microbatches": 2}
+    # the flash kernels through DTensor's strategies, batch- or head-sharded
+    from perceptor_tpu_torch.ops.flash_attention_kernel import flash_attention
+
+    ref, ref_grads = forward_backward(dot_product_attention, q.float(), k.float(), v.float())
+    for dim in (0, 1):
+        placements = [Shard(dim) if i == 0 else Replicate() for i in range(mesh.ndim)]
+        fa.reset_launches()
+        out, grads = forward_backward(
+            lambda *a: flash_attention(*a).full_tensor(),
+            *(distribute_tensor(t, mesh, placements) for t in (q, k, v)))
+        launches = dict(fa.LAUNCHES)
+        if launches != {name: 1 for name in REPLACES}:
+            raise AssertionError(f"parallel_collectives flash on DTensor: {launches}")
+        errs = [_rel_max(out, ref)] + [_rel_max(g.full_tensor(), r)
+                                       for g, r in zip(grads, ref_grads)]
+        if max(errs) > KERNEL_RTOL:
+            raise AssertionError(f"parallel_collectives flash Shard({dim}): {errs}")
+        records[f"flash_dtensor_shard{dim}"] = {"rel_err": errs, "launches": launches}
+    print("parallel_collectives: one card, one rank; the multi-rank ring, Ulysses, pipeline "
+          "and tensor-parallel runs are the CPU tests' (gloo worlds of 2 and 4)", flush=True)
+    emit({"phase": "parallel_collectives", "ok": True, "shape": list(COLLECTIVE_SHAPE),
+          "kv_len": COLLECTIVE_KV, "dtype": "bfloat16", "tol": KERNEL_RTOL, **records})
+    dist.destroy_process_group()
 
 
 def phase_training_stats(losses) -> None:
@@ -4061,6 +4403,7 @@ def main() -> int:
     emit({"phase": "model_build", "ok": True, "seconds": time.perf_counter() - t0})
     launches, measured = {}, {}
     launches["guided_step"], measured["guided_step"] = phase_guided_step(fa, step)
+    phase_routing_report(step)
     phase_profile(step)
     phase_flops(step)
     launches["guided_step_remat"], measured["guided_step_remat"] = phase_guided_step_remat(
@@ -4083,6 +4426,10 @@ def main() -> int:
     phase_training_stats(torch.cat([guided_losses, serving_losses]))
     launches["serving_conditioning"], measured["serving_conditioning"] = (
         phase_serving_conditioning(fa, sd))
+    mesh_launches, mesh_measured = phase_mesh_sample(fa, sd, step)
+    launches.update(mesh_launches)
+    measured.update(mesh_measured)
+    phase_parallel_collectives(fa)
     del sd
     torch.cuda.empty_cache()
     # SD inpainting; its guided phase shares the guided step's loss

@@ -1,5 +1,7 @@
 """Mixed-precision policy (counterpart of perceptor_tpu/core/dtypes.py).
 
+`Policy` and its three presets are JAX's over torch dtypes.
+
 Matmul and convolution weights (ndim >= 2) are stored in bf16; norm scales,
 biases and scalars stay fp32. Every matmul/conv layer of the port computes
 in its weight's dtype (`ops/layers.py`), so bf16 weight storage IS the bf16
@@ -12,12 +14,54 @@ heads of SLIP, BLIP and LiT).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Union
 
 import torch
+import torch.utils._pytree as pytree
 from torch import nn
 
 COMPUTE_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def _cast(tree, dtype: torch.dtype):
+        return pytree.tree_map(
+            lambda x: x.to(dtype)
+            if isinstance(x, torch.Tensor) and x.is_floating_point() else x,
+            tree,
+        )
+
+    def cast_to_compute(self, tree):
+        """Every floating tensor of `tree` in the compute dtype."""
+        return self._cast(tree, self.compute_dtype)
+
+    def cast_to_output(self, tree):
+        """Every floating tensor of `tree` in the output dtype."""
+        return self._cast(tree, self.output_dtype)
+
+
+def default_policy() -> Policy:
+    """bf16 compute, fp32 params and outputs."""
+    return Policy()
+
+
+def half_policy() -> Policy:
+    """bf16 params and compute, fp32 outputs: frozen inference-only nets."""
+    return Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                  output_dtype=torch.float32)
+
+
+def full_policy() -> Policy:
+    """fp32 everywhere: parity runs."""
+    return Policy(param_dtype=torch.float32, compute_dtype=torch.float32,
+                  output_dtype=torch.float32)
 
 
 def _is_matmul_weight(t: torch.Tensor) -> bool:

@@ -1,4 +1,5 @@
 from perceptor_tpu_torch.engine.guidance import (
+    draw_guided_noise,
     export_guided_sample,
     guided_noise_shape,
     guided_sample,
@@ -7,5 +8,5 @@ from perceptor_tpu_torch.engine.guidance import (
     run_on_device,
 )
 
-__all__ = ["export_guided_sample", "guided_noise_shape", "guided_sample", "make_guidance_step",
+__all__ = ["draw_guided_noise", "export_guided_sample", "guided_noise_shape", "guided_sample", "make_guidance_step",
            "optimize", "run_on_device"]

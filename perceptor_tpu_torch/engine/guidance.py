@@ -19,13 +19,14 @@ the JAX package compiles the loop into one `lax.scan` program, here it is
 an eager Python loop; randomness comes from an explicit `torch.Generator`.
 
 `export_guided_sample` traces the sampler into a `torch.export` program
-(utils/serving.py); `torch.autograd.grad` stays inside it.
-
-Not ported (ROADMAP queue A): `mesh`/`rules`.
+(utils/serving.py); `torch.autograd.grad` stays inside it. `guided_sample`
+takes a DeviceMesh (`mesh=`, `rules=`) as JAX's does
+(parallel/partition.py `sampling`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -172,6 +173,8 @@ def guided_sample(
     cfg_scale: float = 7.0,
     loss_images: str = "decoded",
     image_augment: Optional[Callable] = None,
+    mesh=None,
+    rules=None,
 ):
     """Loss-guided DDIM sampling from `initial_latents` over `pairs`, an
     (n_steps, 2) array of (from, to) schedule indices (e.g.
@@ -199,6 +202,12 @@ def guided_sample(
     - ``image_augment``: ``(generator, images) -> images``, applied before
       the losses each step; without a ``generator`` it gets one seeded 0 on
       the latents' device.
+    - ``mesh``/``rules``: sample with the model's weights and the losses'
+      towers placed on a DeviceMesh by the tensor-parallel rules, the
+      latent batch sharded over the data axis when it divides, and the
+      attention routed by the mesh's context-parallel plan
+      (``parallel.partition.sampling``). The augment and the losses see the
+      whole batch, gathered from the data ranks.
 
     Returns (final diffused latents, per-step total loss tensor)."""
     if threshold not in THRESHOLDS:
@@ -212,6 +221,14 @@ def guided_sample(
         )
     if (isinstance(eta, torch.Tensor) or eta > 0.0 or n_resample) and generator is None:
         raise ValueError("eta > 0 and n_resample draw noise: pass generator=")
+    if mesh is not None:
+        return _guided_sample_on_mesh(
+            mesh, rules, model, losses, initial_latents, pairs, conditioning=conditioning,
+            guidance_scale=guidance_scale, loss_weights=loss_weights, eta=eta,
+            generator=generator, correction=correction, n_resample=n_resample,
+            threshold=threshold, threshold_quantile=threshold_quantile,
+            clamp_value=clamp_value, uncond_conditioning=uncond_conditioning,
+            cfg_scale=cfg_scale, loss_images=loss_images, image_augment=image_augment)
     device = initial_latents.device
     if generator is None:  # only the augment draws from it
         generator = torch.Generator(device=device).manual_seed(0)
@@ -271,15 +288,102 @@ def guided_sample(
     return latents, torch.stack(history) if history else torch.zeros(0, device=device)
 
 
+def _guided_sample_on_mesh(mesh, rules, model, losses, initial_latents, pairs, conditioning,
+                           uncond_conditioning, image_augment, **options):
+    """`guided_sample` inside `parallel.partition.sampling`: the model's
+    modules and each loss's (as `loss<i>.<path>`) placed by the rules."""
+    from perceptor_tpu_torch.parallel.partition import sampling
+    from perceptor_tpu_torch.utils import serving
+
+    modules = dict(model.serving_modules())
+    for i, loss in enumerate(losses):
+        for path, module in serving.object_modules(loss).items():
+            modules[f"loss{i}.{path}"] = module
+    with sampling(mesh, modules, initial_latents, rules) as run:
+        if image_augment is not None:
+            augment, seen = (lambda gen, images: image_augment(gen, run.gather(images))), losses
+        else:
+            augment = None
+            seen = [lambda images, _loss=loss: _loss(run.gather(images)) for loss in losses]
+        latents, history = guided_sample(
+            model, seen, run.latents, pairs, conditioning=run.rows(conditioning),
+            uncond_conditioning=run.rows(uncond_conditioning), image_augment=augment, **options)
+        return run.gather(latents), history
+
+
+def _augment_uniforms(image_augment) -> int:
+    """The uniforms `image_augment` draws per call: the product of its
+    `uniform_shape` (0 without an augment)."""
+    if image_augment is None:
+        return 0
+    shape = getattr(image_augment, "uniform_shape", None)
+    if shape is None:
+        raise NotImplementedError(
+            "export_guided_sample: a random image_augment must declare the uniforms it draws "
+            "per call (`uniform_shape`, as transforms.RandomCutouts does) to take them from "
+            "the noise argument")
+    return math.prod(shape)
+
+
+def _guided_draws(n_steps: int, eta, correction: bool, n_resample: int, image_augment):
+    """(normal draws, uniform values) `guided_sample` makes over `n_steps`."""
+    normals = n_resample + ((1 + bool(correction)) if float(eta) > 0.0 else 0)
+    return n_steps * normals, n_steps * (n_resample + 1) * _augment_uniforms(image_augment)
+
+
 def guided_noise_shape(example_latents, n_steps: int, eta: float = 0.0, correction: bool = False,
-                       n_resample: int = 0):
-    """The shape of `export_guided_sample`'s `noise` argument: (draws,
-    *latents' shape), one draw per RePaint iteration and, with eta > 0, one
-    per DDIM step and one per correction re-step; draw it with
-    `predictions.base.draw_noise` from the generator `guided_sample` would
-    use to get its numbers."""
-    per_step = n_resample + ((1 + bool(correction)) if float(eta) > 0.0 else 0)
-    return (n_steps * per_step, *example_latents.shape)
+                       n_resample: int = 0, image_augment=None):
+    """The shape of `export_guided_sample`'s `noise` argument: (rows,
+    *latents' shape). The first rows are the normal draws, one per RePaint
+    iteration and, with eta > 0, one per DDIM step and one per correction
+    re-step; the rows after them hold the uniforms of `image_augment`
+    (its `uniform_shape` per call, one call per guided evaluation), flat
+    and zero-padded. Draw it with `draw_guided_noise` from the generator
+    `guided_sample` would use to get its numbers."""
+    normals, uniforms = _guided_draws(n_steps, eta, correction, n_resample, image_augment)
+    per_row = math.prod(example_latents.shape)
+    return (normals + -(-uniforms // per_row), *example_latents.shape)
+
+
+def draw_guided_noise(generator: torch.Generator, example_latents, n_steps: int,
+                      eta: float = 0.0, correction: bool = False, n_resample: int = 0,
+                      image_augment=None) -> torch.Tensor:
+    """The `noise` argument of `guided_noise_shape`, drawn from `generator`
+    in `guided_sample`'s order (per step: each RePaint iteration's augment
+    uniforms then its normal draw, the step's augment uniforms, then its
+    DDIM and correction draws) and in its shapes, so the numbers are the
+    eager sampler's."""
+    from perceptor_tpu_torch.predictions.base import rand
+
+    shape = guided_noise_shape(example_latents, n_steps, eta, correction, n_resample,
+                               image_augment)
+    per_call = _augment_uniforms(image_augment)
+    stochastic = float(eta) > 0.0
+    normals, uniforms = [], []
+
+    def augment():
+        if per_call:
+            uniforms.append(rand(image_augment.uniform_shape, generator).reshape(-1))
+
+    def normal():
+        normals.append(torch.randn(shape[1:], generator=generator, device=generator.device))
+
+    for _ in range(n_steps):
+        for _ in range(n_resample):
+            augment()
+            normal()
+        augment()
+        if stochastic:
+            normal()
+            if correction:
+                normal()
+    out = torch.zeros(shape, device=generator.device)
+    if normals:
+        out[:len(normals)] = torch.stack(normals)
+    if uniforms:
+        flat = torch.cat(uniforms)
+        out[len(normals):].view(-1)[:flat.shape[0]] = flat
+    return out
 
 
 def export_guided_sample(
@@ -307,7 +411,8 @@ def export_guided_sample(
     `model_params` is `model.params`, `loss_params` a list with
     `utils.serving.object_params(loss)` of each loss (its model's modules and
     its prompt bank), `noise` the pre-drawn step noise of
-    `guided_noise_shape` (empty when nothing is drawn), `guidance_scale` and
+    `guided_noise_shape`, drawn by `draw_guided_noise` (empty when nothing
+    is drawn), `guidance_scale` and
     `eta` 0-d fp32 tensors. With `uncond_conditioning` the conditioning slot
     is the (cond, uncond) pair and a ninth argument, `cfg_scale`, follows.
     Static options (correction, threshold, n_resample, whether eta > 0) are
@@ -316,10 +421,12 @@ def export_guided_sample(
     non-strict export traces; on CUDA the flash forward, dq and dk/dv are
     nodes of its graph. Losses must be loss objects of the port (whose
     tensors the export can reach); a plain callable would bake its state
-    into the artifact and is refused. A random `image_augment` cannot take
-    its draws from the noise argument yet and raises `NotImplementedError`,
-    as does `platforms=("cuda",)` on a host without CUDA: the autograd
-    engine of a CPU-only build cannot run on fake CUDA tensors."""
+    into the artifact and is refused. A random `image_augment` takes its
+    uniforms from the noise argument and must say how many it draws per
+    call (`uniform_shape`, as `transforms.RandomCutouts` does); one that
+    does not raises `NotImplementedError`, as does `platforms=("cuda",)`
+    on a host without CUDA: the autograd engine of a CPU-only build cannot
+    run on fake CUDA tensors."""
     from perceptor_tpu_torch.losses.interface import LossInterface
     from perceptor_tpu_torch.predictions.base import NoiseStream
     from perceptor_tpu_torch.utils import serving
@@ -331,9 +438,6 @@ def export_guided_sample(
         )
     if threshold not in THRESHOLDS:
         raise ValueError(f"threshold must be None|'dynamic'|'static', got {threshold!r}")
-    if image_augment is not None:
-        raise NotImplementedError("export_guided_sample: a random image_augment cannot draw "
-                                  "from the noise argument yet")
     if platforms is not None and "cuda" in platforms and not torch.cuda.is_available():
         raise NotImplementedError("export_guided_sample for CUDA needs a CUDA build: its "
                                   "autograd cannot be traced on fake CUDA tensors")
@@ -341,7 +445,9 @@ def export_guided_sample(
     stochastic = float(eta) > 0.0
     use_cfg = uncond_conditioning is not None
     n_steps = len(example_pairs)
-    noise_shape = guided_noise_shape(example_latents, n_steps, eta, correction, n_resample)
+    noise_shape = guided_noise_shape(example_latents, n_steps, eta, correction, n_resample,
+                                     image_augment)
+    n_normal = _guided_draws(n_steps, eta, correction, n_resample, image_augment)[0]
     modules = model.serving_modules()
 
     def run(latents, pairs, loss_params, conds, noise, guidance_scale, eta_arg, cfg_scale):
@@ -350,10 +456,12 @@ def export_guided_sample(
         return guided_sample(
             model, bound, latents, pairs, conditioning=cond, guidance_scale=guidance_scale,
             loss_weights=loss_weights, eta=eta_arg if stochastic else 0.0,
-            generator=NoiseStream(noise) if noise_shape[0] else None, correction=correction,
+            generator=NoiseStream(noise[:n_normal], noise[n_normal:].reshape(-1))
+            if noise_shape[0] else None, correction=correction,
             n_resample=n_resample, threshold=threshold, threshold_quantile=threshold_quantile,
             clamp_value=clamp_value, uncond_conditioning=uncond,
             cfg_scale=cfg_scale if use_cfg else 7.0, loss_images=loss_images,
+            image_augment=image_augment,
         )
 
     def serve(model_params, latents, pairs, loss_params, conds, noise, guidance_scale, eta_arg,

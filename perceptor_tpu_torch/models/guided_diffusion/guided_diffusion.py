@@ -17,9 +17,9 @@ explicit `torch.Generator`.
 Weights are seeded random at the published widths (the tree holds no
 checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
 `load_state_dict` takes real (OpenAI-named) or converted weights
-(`convert.adm_state_dict_from_jax`).
-
-Not ported (ROADMAP queue A): `mesh`/`rules` and checkpoint discovery.
+(`convert.adm_state_dict_from_jax`); the constructor loads the checkpoint
+that `utils.checkpoints.find_checkpoint` finds. `sample(mesh=, rules=)` samples with the weights placed on a DeviceMesh by
+the tensor-parallel rules (`parallel.partition.sampling`).
 """
 
 from __future__ import annotations
@@ -177,6 +177,8 @@ class GuidedDiffusion:
         to_index: int = 0,
         rho: float = 3.0,
         init_images=None,
+        mesh=None,
+        rules=None,
         method: str = "ddim",
     ) -> torch.Tensor:
         """Images (N, 3, H, W) in [0, 1], fp32: per schedule pair one
@@ -184,7 +186,10 @@ class GuidedDiffusion:
         `method="dpm++"`, a DPM-Solver++(2M) step (deterministic), then the
         denoised images at the last index. `init_images` + `from_index <
         999` gives img2img. `generator` defaults to one seeded 0 on the
-        model's device."""
+        model's device. `mesh` / `rules`: the UNet's weights placed on a
+        DeviceMesh by the tensor-parallel rules, the batch sharded over the
+        data axis when it divides, attention routed by the mesh's
+        context-parallel plan (`parallel.partition.sampling`)."""
         self._check_method(method, eta)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -195,7 +200,13 @@ class GuidedDiffusion:
         else:
             init_images = torch.as_tensor(init_images, dtype=torch.float32, device=self.device)
             diffused = self.diffuse_images(init_images, int(pairs[0, 0]), generator=generator)
-        return self.sample_loop(diffused, pairs, eta=eta, generator=generator, method=method)
+        if mesh is None:
+            return self.sample_loop(diffused, pairs, eta=eta, generator=generator, method=method)
+        from perceptor_tpu_torch.parallel.partition import sampling
+
+        with sampling(mesh, self.serving_modules(), diffused, rules) as run:
+            return run.gather(self.sample_loop(run.latents, pairs, eta=eta, generator=generator,
+                                               method=method))
 
     @staticmethod
     def _check_method(method: str, eta) -> None:

@@ -10,9 +10,10 @@ tree), stored in bf16 for matmuls and convolutions when `fp16` (the VQ
 codebook stays fp32); `load_state_dicts` takes port-named state_dicts
 (`convert.vq_diffusion_state_dicts_from_jax`; an original CompVis
 checkpoint's `model.diffusion_model.*` keys are the UNet's names, and
-`first_stage.convert_compvis_autoencoder` maps its `first_stage_model.*`).
-
-Not ported: `mesh`/`rules` and checkpoint discovery.
+`first_stage.convert_compvis_autoencoder` maps its `first_stage_model.*`);
+the constructor loads the checkpoint that `utils.checkpoints.find_checkpoint`
+finds. `sample(mesh=, rules=)` samples with the weights placed on a DeviceMesh by
+the tensor-parallel rules (`parallel.partition.sampling`).
 """
 
 from __future__ import annotations
@@ -157,17 +158,24 @@ class Face(VQLatentDiffusion):
     @torch.no_grad()
     def sample(self, n_images: int = 1, n_steps: int = 50, size=(256, 256),
                eta: Optional[float] = None, generator: Optional[torch.Generator] = None,
-               from_index: int = 999, to_index: int = 50, method: str = "ddim") -> torch.Tensor:
+               from_index: int = 999, to_index: int = 50, mesh=None, rules=None,
+               method: str = "ddim") -> torch.Tensor:
         """Unconditional faces (N, 3, H, W) in [0, 1]: per schedule pair eps
         -> denoise -> DDIM step (or DPM-Solver++(2M), no eta), then the
         final denoise and the VQ decode. `generator` defaults to one seeded
-        0 on the model's device."""
+        0 on the model's device. `mesh` / `rules` as in
+        `GuidedDiffusion.sample` (`parallel.partition.sampling`)."""
         eta = self.eta if eta is None else eta
         check_method(method, eta)
         generator = self._generator(generator)
         latents = self.random_latents((n_images, 3, *size), generator)
         pairs = self.schedule_indices(from_index, to_index, n_steps)
-        return self.sample_loop(latents, pairs, eta, generator, method)
+        if mesh is None:
+            return self.sample_loop(latents, pairs, eta, generator, method)
+        from perceptor_tpu_torch.parallel.partition import sampling
+
+        with sampling(mesh, self.serving_modules(), latents, rules) as run:
+            return run.gather(self.sample_loop(run.latents, pairs, eta, generator, method))
 
     @torch.no_grad()
     def sample_loop(self, latents, pairs, eta: Optional[float] = None,

@@ -7,10 +7,12 @@ The conditioning is the low-resolution image itself: the UNet's input is
 `ops.resize`; `eta` defaults to 1.0. The reference's tiled
 (`convolutional`) decoding is accepted and dropped, as JAX does: the full
 frame runs in one pass. This is the LDM model; `models.SuperResolution`
-names the ESRGAN wrapper, which is not ported.
+names the ESRGAN wrapper (models/super_resolution.py).
 
 Weights are seeded random at the published widths (no checkpoint in the
-tree); see `face.VQLatentDiffusion`.
+tree), or the checkpoint that `utils.checkpoints.find_checkpoint` finds; see
+`face.VQLatentDiffusion`. `sample(mesh=, rules=)` samples with the weights placed on a DeviceMesh by
+the tensor-parallel rules (`parallel.partition.sampling`).
 """
 
 from __future__ import annotations
@@ -99,13 +101,14 @@ class SuperResolution(VQLatentDiffusion):
     @torch.no_grad()
     def sample(self, images, n_steps: int = 50, eta: Optional[float] = None,
                generator: Optional[torch.Generator] = None, from_index: int = 999,
-               to_index: int = 0, method: str = "ddim") -> torch.Tensor:
+               to_index: int = 0, mesh=None, rules=None, method: str = "ddim") -> torch.Tensor:
         """Super-resolution conditioned on `images`, the LR content on the HR
         canvas (e.g. `upsample(lr)`): noise latents -> per schedule pair eps
         (concat conditioning) -> denoise -> DDIM step -> final denoise -> VQ
         decode. Images in [0, 1] at the canvas size. dpm++ is deterministic:
         pass eta=0, since BSR defaults to 1.0. `generator` defaults to one
-        seeded 0 on the model's device."""
+        seeded 0 on the model's device. `mesh` / `rules` as in
+        `GuidedDiffusion.sample` (`parallel.partition.sampling`)."""
         eta = self.eta if eta is None else eta
         check_method(method, eta, " (pass eta=0)")
         generator = self._generator(generator)
@@ -113,7 +116,13 @@ class SuperResolution(VQLatentDiffusion):
         latents = torch.randn((images.shape[0], self.unet_config.out_channels, *cond.shape[-2:]),
                               generator=generator, device=self.device)
         pairs = self.schedule_indices(from_index, to_index, n_steps)
-        return self.sample_loop(latents, pairs, cond, eta, generator, method)
+        if mesh is None:
+            return self.sample_loop(latents, pairs, cond, eta, generator, method)
+        from perceptor_tpu_torch.parallel.partition import sampling
+
+        with sampling(mesh, self.serving_modules(), latents, rules) as run:
+            return run.gather(self.sample_loop(run.latents, pairs, run.rows(cond), eta,
+                                               generator, method))
 
     @torch.no_grad()
     def sample_loop(self, latents, pairs, conditioning, eta: Optional[float] = None,

@@ -16,9 +16,10 @@ for matmuls and convolutions when `fp16`; `load_state_dicts` takes
 port-named state_dicts (`convert.text2image_state_dicts_from_jax`; an
 original CompVis checkpoint's `model.diffusion_model.*` and
 `cond_stage_model.transformer.*` keys are the UNet's and BERT's names, and
-`first_stage.convert_compvis_autoencoder` maps its `first_stage_model.*`).
-
-Not ported: `mesh`/`rules` and checkpoint discovery.
+`first_stage.convert_compvis_autoencoder` maps its `first_stage_model.*`);
+the constructor loads the checkpoint that `utils.checkpoints.find_checkpoint`
+finds. `sample(mesh=, rules=)` samples with the weights placed on a DeviceMesh by
+the tensor-parallel rules (`parallel.partition.sampling`).
 """
 
 from __future__ import annotations
@@ -210,20 +211,31 @@ class Text2Image(LatentDiffusionSchedule):
         generator: Optional[torch.Generator] = None,
         from_index: int = 999,
         to_index: int = 50,
+        mesh=None,
+        rules=None,
         method: str = "ddim",
     ) -> torch.Tensor:
         """Texts -> images (N, 3, H, W) in [0, 1]: per schedule pair eps
         with the built-in CFG -> denoise -> DDIM step (or DPM-Solver++(2M),
         deterministic: no eta), then the final denoise and the decode.
         `guidance_scale` and `eta` default to the constructor's;
-        `generator` to one seeded 0 on the model's device."""
+        `generator` to one seeded 0 on the model's device. `mesh` / `rules`
+        as in `GuidedDiffusion.sample` (`parallel.partition.sampling`)."""
         eta = self.eta if eta is None else eta
         check_method(method, eta)
         generator = self._generator(generator)
         latents = self.random_latents((len(texts), 3, *size), generator)
         cond = self.conditioning(list(texts), list(negative_texts))
         pairs = self.schedule_indices(from_index, to_index, n_steps)
-        return self.sample_loop(latents, pairs, cond, guidance_scale, eta, generator, method)
+        if mesh is None:
+            return self.sample_loop(latents, pairs, cond, guidance_scale, eta, generator, method)
+        from perceptor_tpu_torch.parallel.partition import sampling
+
+        with sampling(mesh, self.serving_modules(), latents, rules) as run:
+            positive, negative = cond.chunk(2)
+            cond = torch.cat([run.rows(positive), run.rows(negative)])
+            return run.gather(self.sample_loop(run.latents, pairs, cond, guidance_scale, eta,
+                                               generator, method))
 
     @torch.no_grad()
     def sample_loop(self, latents, pairs, conditioning, guidance_scale: Optional[float] = None,

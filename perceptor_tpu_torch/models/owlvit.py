@@ -19,7 +19,6 @@ B/32 at 768px attends over 577 tokens: the plain attention route.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -28,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceptor_tpu_torch.core.dtypes import keep_fp32
+from perceptor_tpu_torch.core.memo import device_cache
 from perceptor_tpu_torch.models.clip.tokenizer import SimpleTokenizer, tokenize
 from perceptor_tpu_torch.models.dual_encoder import DualEncoder
 from perceptor_tpu_torch.ops.attention import attention, causal_mask
@@ -198,7 +198,7 @@ class _BoxHead(nn.Module):
         self.dense2 = keep_fp32(Linear(cfg.vision_width, 4))
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def box_bias(n_patches: int, device: torch.device) -> torch.Tensor:
     """The box head's bias over an n x n patch grid, (n^2, 4): the inverse
     sigmoid of each patch's (x, y) corner and of its size 1 / n, computed in

@@ -34,7 +34,9 @@ checkpoint's UNet keys map onto `UNet` through
 
 `export_sample` and `export_conditioning` trace the sampler and the text
 encoder into `torch.export` programs (utils/serving.py); `prime` warms the
-eager sampler. Not ported (ROADMAP queue A): `mesh`/`rules`.
+eager sampler. `sample(mesh=, rules=)` and `sample_loop(mesh=, rules=)`
+sample with the weights placed on a DeviceMesh by the tensor-parallel rules
+(`parallel.partition.sampling`).
 """
 
 from __future__ import annotations
@@ -401,6 +403,8 @@ class StableDiffusion:
         inpainting_masks=None,
         mask_blur: float = 4.0,
         replace_diffused: bool = True,
+        mesh=None,
+        rules=None,
     ) -> torch.Tensor:
         """Text -> images (N, 3, H, W) in [0, 1], fp32.
 
@@ -419,18 +423,34 @@ class StableDiffusion:
         1 where to paint, with `init_images` the pictures to paint into;
         `mask_blur` is the latent mask's Gaussian sigma in pixels, and
         `replace_diffused` puts the init latents, diffused to each step's
-        target index, back outside that mask after every step."""
+        target index, back outside that mask after every step.
+
+        `mesh` (a DeviceMesh of `parallel.create_mesh`) samples with the
+        UNet, VAE and text-encoder weights placed by the tensor-parallel
+        `rules` (`parallel.SD_TENSOR_PARALLEL_RULES` by default), the
+        latent batch sharded over the data axis when it divides, and, with
+        a context axis, the attention routed through ring/Ulysses
+        (`parallel.partition.sampling`). With a data axis each data rank
+        draws its stochastic noise for its own rows. `mesh=None` is the
+        single-device sampler, unchanged."""
         self._check_method(method, eta, n_resample, cache_interval)
         generator, uncond, cond, pairs, latents, init_latents = self._setup(
             texts, negative_texts, n_steps, size, generator, from_index, to_index, init_images,
             inpainting_masks, mask_blur,
         )
-        latents = self.sample_loop(
-            latents, pairs, uncond, cond, guidance_scale, eta=eta, generator=generator,
-            n_resample=n_resample, method=method, cache_interval=cache_interval,
-            init_latents=init_latents, replace_diffused=replace_diffused,
-        )
-        return self.decode(latents)
+        options = dict(eta=eta, generator=generator, n_resample=n_resample, method=method,
+                       cache_interval=cache_interval, replace_diffused=replace_diffused)
+        if mesh is None:
+            latents = self.sample_loop(latents, pairs, uncond, cond, guidance_scale,
+                                       init_latents=init_latents, **options)
+            return self.decode(latents)
+        from perceptor_tpu_torch.parallel.partition import sampling
+
+        with sampling(mesh, self.serving_modules(), latents, rules) as run:
+            latents = self.sample_loop(run.latents, pairs, run.rows(uncond), run.rows(cond),
+                                       guidance_scale, init_latents=run.rows(init_latents),
+                                       **options)
+            return run.gather(self.decode(latents))
 
     def _setup(
         self, texts, negative_texts, n_steps, size, generator,
@@ -506,6 +526,8 @@ class StableDiffusion:
         cache_interval: int = 1,
         init_latents: Optional[torch.Tensor] = None,
         replace_diffused: bool = True,
+        mesh=None,
+        rules=None,
     ) -> torch.Tensor:
         """The sampler from given diffused latents: for each (from, to)
         pair of `pairs`, `n_resample` RePaint iterations, then one CFG
@@ -514,8 +536,16 @@ class StableDiffusion:
         `uncond` and `cond` are encodings or `Conditioning`s; when `cond`
         carries an inpainting mask and `init_latents` are given,
         `replace_diffused` re-injects them outside the mask after each
-        step. Returns the final latents."""
+        step. `mesh` / `rules` as in `sample`. Returns the final latents."""
         self._check_method(method, eta, n_resample, cache_interval)
+        if mesh is not None:
+            from perceptor_tpu_torch.parallel.partition import sampling
+
+            with sampling(mesh, self.serving_modules(), latents, rules) as run:
+                return run.gather(self.sample_loop(
+                    run.latents, pairs, run.rows(uncond), run.rows(cond), guidance_scale, eta,
+                    generator, n_resample, method, cache_interval, run.rows(init_latents),
+                    replace_diffused))
         for latents, _ in self._steps(
             latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample, method,
             cache_interval, init_latents, replace_diffused,

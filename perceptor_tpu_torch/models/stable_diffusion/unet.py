@@ -28,6 +28,7 @@ from perceptor_tpu_torch.ops.conv_matmul import Conv3x3
 from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU
 from perceptor_tpu_torch.ops.layers import Conv2d, GroupNorm, LayerNorm, Linear
 from perceptor_tpu_torch.ops.upsample_conv import nearest_upsample_2x
+from perceptor_tpu_torch.parallel.plan import shard_spatial
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0):
@@ -282,7 +283,8 @@ class UNet(nn.Module):
         dtype = self.conv_in.weight.dtype
         context = context.to(dtype)
 
-        x = self.conv_in(latents)
+        # the context-parallel plan's record of the entry (parallel/plan.py)
+        x = self.conv_in(shard_spatial(latents, h_axis=2))
         skips = [x]
         if cache is not None:
             self._down_level(self.down_blocks[0], x, emb, context, skips)

@@ -20,6 +20,7 @@ from perceptor_tpu_torch.ops.attention import attention
 from perceptor_tpu_torch.ops.conv_matmul import Conv3x3
 from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU
 from perceptor_tpu_torch.ops.layers import Conv2d, GroupNorm, Linear
+from perceptor_tpu_torch.parallel.plan import shard_spatial
 
 
 class ResnetBlock(nn.Module):
@@ -185,7 +186,7 @@ class AutoencoderKL(nn.Module):
     def moments(self, images):
         """images NCHW [0,1] -> (mean, logvar) of the latent posterior, fp32;
         logvar clipped to [-30, 20]."""
-        h = self.quant_conv(self.encoder(images * 2.0 - 1.0))
+        h = self.quant_conv(self.encoder(shard_spatial(images * 2.0 - 1.0, h_axis=2)))
         mean, logvar = torch.chunk(h.float(), 2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
@@ -201,7 +202,7 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, latents):
         """latents NCHW (scaled) -> images NCHW [0,1], fp32."""
-        x = self.post_quant_conv(latents / self.config.scaling_factor)
+        x = self.post_quant_conv(shard_spatial(latents / self.config.scaling_factor, h_axis=2))
         x = self.decoder(x)
         return (x.float() + 1.0) / 2.0
 

@@ -23,7 +23,6 @@ latents -> images in [0, 1], `latents(...)` from numpy-seeded z.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Dict, List, Mapping
 
@@ -33,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceptor_tpu_torch.core.init import resolve_device
+from perceptor_tpu_torch.core.memo import device_cache
 from perceptor_tpu_torch.ops.bias_act import bias_act
 from perceptor_tpu_torch.ops.filtered_lrelu import filtered_lrelu
 from perceptor_tpu_torch.utils.cache import cache
@@ -233,7 +233,7 @@ class MappingNetwork(nn.Module):
         return x[:, None].repeat(1, cfg.synthesis.num_ws, 1)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _input_grid(size: int, sampling_rate: float, device: torch.device) -> torch.Tensor:
     """affine_grid(align_corners=False)'s pixel centers over [size, size],
     scaled by size / (2 sampling_rate): (H, W, 2) fp32 on `device`, built

@@ -16,10 +16,11 @@ Randomness comes from an explicit `torch.Generator`.
 
 Weights are seeded random at the published widths (the tree holds no
 checkpoints), stored in bf16 for matmuls and convolutions when `fp16`;
-`load_state_dict` takes converted weights (`convert.vnet_state_dict_from_jax`).
-
-Not ported (ROADMAP queue A): `export_sample`, `mesh`/`rules` and checkpoint
-discovery.
+`load_state_dict` takes converted weights (`convert.vnet_state_dict_from_jax`);
+the constructor loads the checkpoint that `utils.checkpoints.find_checkpoint`
+finds. `export_sample` traces the sampler into a `torch.export` program.
+`sample(mesh=, rules=)` samples with the weights placed on a DeviceMesh by
+the tensor-parallel rules (`parallel.partition.sampling`).
 """
 
 from __future__ import annotations
@@ -222,6 +223,8 @@ class VelocityDiffusion:
         generator: Optional[torch.Generator] = None,
         from_ts: float = 1.0,
         to_ts: float = 1e-2,
+        mesh=None,
+        rules=None,
         method: str = "ddim",
     ) -> torch.Tensor:
         """Images (n_images, *self.shape) in [0, 1], fp32.
@@ -234,14 +237,22 @@ class VelocityDiffusion:
         samplers, "dpm++" DPM-Solver++(2M); eta / churn / correction apply
         to ddim only. A conditioned model sampled without `conditioning`
         gets the zero embedding of its unconditional branch. `generator`
-        defaults to one seeded 0 on the model's device."""
+        defaults to one seeded 0 on the model's device. `mesh` / `rules` as
+        in `GuidedDiffusion.sample` (`parallel.partition.sampling`)."""
         self._check_method(method, eta, churn, correction)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         diffused = self.random_diffused((n_images, *self.shape), generator)
         pairs = self.schedule_ts(n_steps, from_ts=from_ts, to_ts=to_ts)
-        return self.sample_loop(diffused, pairs, conditioning, eta=eta, churn=churn,
-                                correction=correction, generator=generator, method=method)
+        options = dict(eta=eta, churn=churn, correction=correction, generator=generator,
+                       method=method)
+        if mesh is None:
+            return self.sample_loop(diffused, pairs, conditioning, **options)
+        from perceptor_tpu_torch.parallel.partition import sampling
+
+        with sampling(mesh, self.serving_modules(), diffused, rules) as run:
+            return run.gather(self.sample_loop(run.latents, pairs, run.rows(conditioning),
+                                               **options))
 
     @staticmethod
     def _check_method(method, eta, churn, correction) -> None:

@@ -9,14 +9,19 @@ Two paths over (batch, heads, seq, head_dim) tensors:
 `attention` routes long unmasked self-attention on a CUDA device to the
 kernels (the JAX rule of `flash_route`) and everything else to the
 dot-product path; under `model_flops_trace` every call takes the
-dot-product path. The context-parallel plans of the JAX package are not
-ported.
+dot-product path. Under an active context-parallel plan
+(parallel/plan.py), long self-attention runs as ring attention and
+cross-attention as Ulysses attention over the plan's context axis. Every
+decision goes to the active `parallel.record_routing()` report with its
+reason, under JAX's route names: "ring", "ulysses", "flash", and "xla" for
+the dot-product path.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import sys
 from typing import Optional
 
 import torch
@@ -69,16 +74,41 @@ def model_flops_trace():
         _COUNTING_MODEL_FLOPS = prior
 
 
+_PLAN_MODULE = "perceptor_tpu_torch.parallel.plan"
+
+
+def _context_plan_route_explain(seq_q: int, seq_k: int, heads: int, masked: bool):
+    """(plan, route, reason) under the active context-parallel plan, or
+    (None, None, None). No plan can be active before parallel/plan.py is
+    imported, so the module is looked up, not imported."""
+    plan_module = sys.modules.get(_PLAN_MODULE)
+    plan = plan_module.current_plan() if plan_module is not None else None
+    if plan is None:
+        return None, None, None
+    route, reason = plan.route_explain(seq_q, seq_k, heads, masked=masked)
+    return plan, route, reason
+
+
+def _record_route(shape, route, reason) -> None:
+    plan_module = sys.modules.get(_PLAN_MODULE)
+    if plan_module is not None:
+        plan_module.record_route("attention", shape, route, reason)
+
+
 def flash_route(seq_q: int, seq_k: int, masked: bool = False,
                 q: Optional[torch.Tensor] = None) -> bool:
     """True when `attention` takes the flash kernels: unmasked, S_q == S_k
     >= 1024 and a multiple of 128 (the JAX rule), on a CUDA device: `q`'s,
     or with no `q` whether CUDA is available. False under
-    `model_flops_trace`. The rule looks at no head_dim or dtype:
-    `flash_attention` pads a head_dim to a multiple of 8, and what the
-    kernels still cannot run (a head_dim above 512, fp16) raises there;
-    nothing is sent to the dot-product path on that account."""
+    `model_flops_trace`, and False where an active context-parallel plan
+    routes the shape to the ring or Ulysses (as in JAX, heads=1 decides:
+    any flash-eligible length is ring-eligible). The rule looks at no
+    head_dim or dtype: `flash_attention` pads a head_dim to a multiple of 8,
+    and what the kernels still cannot run (a head_dim above 512, fp16)
+    raises there; nothing is sent to the dot-product path on that account."""
     on_cuda = torch.cuda.is_available() if q is None else q.is_cuda
+    if _context_plan_route_explain(seq_q, seq_k, 1, masked)[1] is not None:
+        return False
     return (
         not _COUNTING_MODEL_FLOPS
         and not masked
@@ -98,11 +128,32 @@ def attention(
     use_flash: Optional[bool] = None,
 ) -> torch.Tensor:
     """Dispatching attention entry point; `use_flash=None` applies
-    `flash_route`, True/False force the route."""
+    `flash_route`, True/False force the route. Under a context-parallel plan
+    that routes the shape, the ring or Ulysses runs over the plan's context
+    axis alone: the port's mesh samplers hand each data rank its own batch
+    shard, so q, k and v are the same on the context ranks and the result
+    is gathered back to them."""
+    seq_q, seq_k = q.shape[-2], k.shape[-2]
+    site_shape = (seq_q, seq_k, q.shape[1])
+    plan, plan_route, plan_reason = _context_plan_route_explain(
+        seq_q, seq_k, q.shape[1], mask is not None)
+    if plan_route is not None:
+        from perceptor_tpu_torch.parallel.plan import RING
+        from perceptor_tpu_torch.parallel.ring_attention import ring_attention
+        from perceptor_tpu_torch.parallel.ulysses import ulysses_attention
+
+        _record_route(site_shape, plan_route, plan_reason)
+        route_fn = ring_attention if plan_route == RING else ulysses_attention
+        return route_fn(q, k, v, plan.mesh[plan.context_axis], scale=scale,
+                        context_axis=plan.context_axis, batch_axis=None)
+    fallback = f"; plan fallback: {plan_reason}" if plan is not None else ""
     if use_flash is None:
-        use_flash = flash_route(q.shape[-2], k.shape[-2], mask is not None, q)
+        use_flash = flash_route(seq_q, seq_k, mask is not None, q)
     if use_flash and not _COUNTING_MODEL_FLOPS:
         if mask is not None:
             raise ValueError("the flash kernels take no mask")
+        _record_route(site_shape, "flash",
+                      "flash kernels (long unmasked self-attention on CUDA)" + fallback)
         return flash_attention(q, k, v, scale=scale)
+    _record_route(site_shape, "xla", "XLA dot-product attention" + fallback)
     return dot_product_attention(q, k, v, mask=mask, scale=scale)

@@ -1,5 +1,9 @@
 """GroupNorm and fused GroupNorm + activation (counterpart of
-perceptor_tpu/ops/groupnorm.py:156-277), NCHW.
+perceptor_tpu/ops/groupnorm.py).
+
+`group_norm` and `group_norm_silu` take JAX's arguments and layout
+(`channel_axis`, default last) and return the input's dtype;
+`group_norm_fp32` is the NCHW fp32 norm the port's models use.
 
 `fused_group_norm_act` is a `torch.autograd.Function` that saves only
 (x, scale, bias, mean, rstd) and recomputes the normalized activations in
@@ -17,9 +21,51 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def group_norm(x: torch.Tensor, weight, bias, num_groups: int, eps: float) -> torch.Tensor:
-    """Plain GroupNorm with fp32 statistics and fp32 output (flax
-    `nn.GroupNorm(dtype=float32)`)."""
+def group_norm(
+    x: torch.Tensor,
+    num_groups: int = 32,
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+    channel_axis: int = -1,
+) -> torch.Tensor:
+    """GroupNorm over (..., C) or (N, C, ...) tensors, JAX's signature and
+    arithmetic: statistics in fp32 per (batch, group) over all positions and
+    the group's channels, the normalized values cast to `x`'s dtype, then
+    the per-channel `scale` and `bias` applied in that dtype."""
+    channel_axis = channel_axis % x.ndim
+    c = x.shape[channel_axis]
+    if c % num_groups:
+        raise ValueError(f"{c} channels not divisible by {num_groups} groups")
+    xt = x.movedim(channel_axis, -1)
+    shape = xt.shape
+    g32 = xt.reshape(shape[0], -1, num_groups, c // num_groups).float()
+    mean = g32.mean(dim=(1, 3), keepdim=True)
+    var = g32.var(dim=(1, 3), keepdim=True, unbiased=False)
+    normed = ((g32 - mean) * torch.rsqrt(var + eps)).reshape(shape).to(x.dtype)
+    if scale is not None:
+        normed = normed * scale.to(x.dtype)
+    if bias is not None:
+        normed = normed + bias.to(x.dtype)
+    return normed.movedim(-1, channel_axis)
+
+
+def group_norm_silu(
+    x: torch.Tensor,
+    num_groups: int = 32,
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+    channel_axis: int = -1,
+) -> torch.Tensor:
+    """`group_norm` followed by SiLU (JAX `group_norm_silu`)."""
+    h = group_norm(x, num_groups, scale, bias, eps, channel_axis)
+    return h * torch.sigmoid(h)
+
+
+def group_norm_fp32(x: torch.Tensor, weight, bias, num_groups: int, eps: float) -> torch.Tensor:
+    """NCHW GroupNorm with fp32 statistics and fp32 output (flax
+    `nn.GroupNorm(dtype=float32)`), the norm of `ops.layers.GroupNorm`."""
     return F.group_norm(x.float(), num_groups, weight.float(), bias.float(), eps)
 
 

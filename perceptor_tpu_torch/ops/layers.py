@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from perceptor_tpu_torch.ops.groupnorm import group_norm
+from perceptor_tpu_torch.ops.groupnorm import group_norm_fp32
 
 
 class Linear(nn.Linear):
@@ -78,7 +78,7 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(min(num_groups, channels), channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
+        return group_norm_fp32(x, self.weight, self.bias, self.num_groups, self.eps)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -19,6 +19,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from perceptor_tpu_torch.core.memo import device_cache
+
 _EPS = float(np.finfo(np.float32).eps)
 
 
@@ -220,7 +222,7 @@ def _half_pixel_matrix(in_size: int, out_size: int) -> np.ndarray:
     return matrix.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(maxsize=256)
 def _bilinear_matrices(
     in_shape: Tuple[int, int], out_shape: Tuple[int, int], align_corners: bool,
     device: torch.device,

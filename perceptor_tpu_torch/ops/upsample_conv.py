@@ -1,5 +1,5 @@
-"""Nearest-neighbour 2x upsampling (counterpart of
-perceptor_tpu/ops/upsample_conv.py `nearest_upsample_2x`), NCHW.
+"""Nearest-neighbour 2x upsampling and the upsample + 3x3 conv (counterpart
+of perceptor_tpu/ops/upsample_conv.py), NCHW.
 
 `F.interpolate(x, scale_factor=2.0, mode="nearest")`, registered as the op
 `perceptor_tpu_torch::nearest_upsample_2x` whose forward and backward call
@@ -13,9 +13,10 @@ would not reproduce the eager one."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def _sizes(x: torch.Tensor) -> List[int]:
@@ -44,3 +45,14 @@ def _backward(ctx, grad):
 
 
 nearest_upsample_2x.register_autograd(_backward, setup_context=_setup_context)
+
+
+def upsample2x_nearest_conv3x3(
+    x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """x (N, C, H, W), kernel (F, C, 3, 3) -> (N, F, 2H, 2W): a 3x3 conv
+    with padding 1 over the nearest 2x upsample of `x` (JAX
+    `upsample2x_nearest_conv3x3`, there NHWC with an HWIO kernel)."""
+    if tuple(kernel.shape[-2:]) != (3, 3):
+        raise ValueError(f"expected 3x3 kernel, got {tuple(kernel.shape[-2:])}")
+    return F.conv2d(nearest_upsample_2x(x), kernel, bias, padding=1)

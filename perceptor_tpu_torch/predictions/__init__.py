@@ -1,3 +1,4 @@
+from perceptor_tpu_torch.predictions import diffusion_space
 from perceptor_tpu_torch.predictions.edm import EDMPredictions
 from perceptor_tpu_torch.predictions.indexed import (
     IndexedEpsPredictions,
@@ -6,6 +7,6 @@ from perceptor_tpu_torch.predictions.indexed import (
 from perceptor_tpu_torch.predictions.velocity import VelocityPredictions
 
 __all__ = [
-    "EDMPredictions", "IndexedEpsPredictions", "LatentIndexedEpsPredictions",
+    "diffusion_space", "EDMPredictions", "IndexedEpsPredictions", "LatentIndexedEpsPredictions",
     "VelocityPredictions",
 ]

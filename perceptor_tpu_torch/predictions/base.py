@@ -13,6 +13,7 @@ never the global RNG.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -33,14 +34,18 @@ def expand_like_batch(values, reference: torch.Tensor) -> torch.Tensor:
 
 class NoiseStream:
     """Pre-drawn noise standing where a `torch.Generator` would: the i-th
-    `randn_like` call takes `draws[i]`. An exported program cannot take a
+    `randn_like` call takes `draws[i]`, and each `rand` call the next
+    values of the flat `uniforms`. An exported program cannot take a
     generator, so it takes the noise its sampler would draw as a tensor,
-    drawn beforehand by `draw_noise` from the generator the eager sampler
-    would use, in the same order and shapes, hence the same numbers."""
+    drawn beforehand (`draw_noise`, `engine.guidance.draw_guided_noise`)
+    from the generator the eager sampler would use, in the same order and
+    shapes, hence the same numbers."""
 
-    def __init__(self, draws: torch.Tensor):
+    def __init__(self, draws: torch.Tensor, uniforms: Optional[torch.Tensor] = None):
         self.draws = draws
         self.index = 0
+        self.uniforms = uniforms
+        self.offset = 0
 
     def next(self, reference: torch.Tensor) -> torch.Tensor:
         if self.index >= self.draws.shape[0]:
@@ -52,6 +57,16 @@ class NoiseStream:
                              f"{tuple(reference.shape)}")
         self.index += 1
         return out.to(reference.dtype)
+
+    def next_uniform(self, shape) -> torch.Tensor:
+        n = math.prod(shape)
+        held = 0 if self.uniforms is None else self.uniforms.shape[0]
+        if self.offset + n > held:
+            raise ValueError(f"the noise holds {held} uniforms; the sampler asked for "
+                             f"{self.offset + n}")
+        out = self.uniforms[self.offset:self.offset + n].reshape(shape)
+        self.offset += n
+        return out
 
 
 def draw_noise(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
@@ -274,3 +289,13 @@ class PredictionAlgebra:
 
     def wasserstein_square_distance(self):
         return torch.square(self._wasserstein_residuals()).mean()
+
+
+def rand(shape, generator) -> torch.Tensor:
+    """U[0, 1) fp32 values of `shape` from `generator` (a `torch.Generator`,
+    on its device, or a `NoiseStream`'s uniforms), which must be given."""
+    if generator is None:
+        raise ValueError("random draws need an explicit generator=")
+    if isinstance(generator, NoiseStream):
+        return generator.next_uniform(tuple(shape))
+    return torch.rand(tuple(shape), generator=generator, device=generator.device)

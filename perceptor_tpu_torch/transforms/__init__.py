@@ -5,6 +5,7 @@ from perceptor_tpu_torch.ops.clamp import clamp_with_grad
 from perceptor_tpu_torch.ops.resize import resize
 from perceptor_tpu_torch.transforms.clamp import ClampWithGrad
 from perceptor_tpu_torch.transforms.cutouts import (
+    RandomCutouts,
     crop_and_resize,
     random_cutout_boxes,
     random_cutouts,
@@ -23,6 +24,7 @@ __all__ = [
     "crop_and_resize",
     "random_cutout_boxes",
     "random_cutouts",
+    "RandomCutouts",
     "dynamic_threshold",
     "DynamicThreshold",
     "SuperResolution",

@@ -14,12 +14,19 @@ Both contractions run in fp32 with TF32 off, as the JAX einsums run at
 `Precision.HIGHEST`; the output is cast back to the images' dtype.
 
 Randomness is an explicit `torch.Generator` on the images' device: the
-boxes are drawn there, so no step waits for the host.
+boxes are drawn there, so no step waits for the host. In an exported
+program the generator is a `predictions.base.NoiseStream` whose uniforms
+were drawn beforehand by the same calls; `RandomCutouts` is the guidance
+augment that declares how many it takes.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+from perceptor_tpu_torch.predictions.base import rand
 
 
 def _axis_weights(starts, sizes, in_size: int, out_size: int) -> torch.Tensor:
@@ -78,11 +85,12 @@ def random_cutout_boxes(
     `U(0,1)**cut_pow` scaled into [min(cut_size, S), S] with S = min(H, W),
     placed uniformly inside the image. Returns (n, 4) normalized
     (y0, x0, y1, x1) on the generator's device; u, then oy, then ox are
-    drawn from `generator`."""
+    drawn from `generator` in one (3, n) draw, or taken pre-drawn from a
+    `NoiseStream`."""
     h, w = image_size
     max_size = float(min(h, w))
     min_size = float(min(h, w, cut_size))
-    u, ry, rx = torch.rand((3, n_cutouts), generator=generator, device=generator.device)
+    u, ry, rx = rand((3, n_cutouts), generator)
     sizes = u**cut_pow * (max_size - min_size) + min_size
     oy = ry * (h - sizes)
     ox = rx * (w - sizes)
@@ -104,3 +112,21 @@ def random_cutouts(
         generator, images.shape[-2:], n_cutouts, cut_size=cut_size, cut_pow=cut_pow
     )
     return crop_and_resize(images, boxes, cut_size)
+
+
+class RandomCutouts:
+    """The `image_augment` `(generator, images) -> random_cutouts(...)` of
+    guided sampling, with the uniform draws it makes on each call
+    (`uniform_shape`), which `engine.export_guided_sample` needs to take
+    them from its noise argument."""
+
+    def __init__(self, n_cutouts: int, cut_size: int = 224, cut_pow: float = 1.0):
+        self.n_cutouts, self.cut_size, self.cut_pow = n_cutouts, cut_size, cut_pow
+
+    @property
+    def uniform_shape(self) -> Tuple[int, int]:
+        return (3, self.n_cutouts)
+
+    def __call__(self, generator, images: torch.Tensor) -> torch.Tensor:
+        return random_cutouts(images, generator, self.n_cutouts, cut_size=self.cut_size,
+                              cut_pow=self.cut_pow)

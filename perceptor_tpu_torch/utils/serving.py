@@ -104,6 +104,14 @@ def object_params(obj) -> Dict[str, Dict[str, torch.Tensor]]:
             "tensors": tensors}
 
 
+def object_modules(obj) -> Dict[str, torch.nn.Module]:
+    """The modules an object of the port reaches through its attributes,
+    by the paths `object_params` lists them under."""
+    modules = {}
+    _walk(obj, "", modules, {}, set(), 0)
+    return modules
+
+
 def _attribute_owner(obj, path):
     *parents, last = path.split(".")
     for key in parents:

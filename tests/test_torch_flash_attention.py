@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from perceptor_tpu.ops import flash_attention_kernel as jfa
-from perceptor_tpu_torch.ops import attention as tattn
+tattn = importlib.import_module("perceptor_tpu_torch.ops.attention")
 from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
 
 import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)

@@ -2,6 +2,7 @@
 JAX package's: the TINY guided step's model FLOPs, the resize and cutout
 products, and the per-op breakdown on toys; `mfu` against the card table."""
 
+import importlib
 import inspect
 
 import jax
@@ -21,7 +22,7 @@ from perceptor_tpu.transforms.cutouts import random_cutouts as jrandom_cutouts
 from perceptor_tpu.utils import flops as jflops
 from perceptor_tpu_torch import guided_step
 from perceptor_tpu_torch.models.velocity_diffusion import VelocityDiffusion
-from perceptor_tpu_torch.ops import attention as tattention
+tattention = importlib.import_module("perceptor_tpu_torch.ops.attention")
 from perceptor_tpu_torch.ops.resize import resize as tresize
 from perceptor_tpu_torch.transforms import random_cutouts as trandom_cutouts
 from perceptor_tpu_torch.utils import flops

@@ -6,6 +6,7 @@ JAX PRNG draws cannot be replayed by a `torch.Generator`, so stochastic
 branches run with one fixed noise tensor fed to both sides.
 """
 
+import importlib
 import dataclasses
 
 import jax
@@ -26,7 +27,7 @@ from perceptor_tpu_torch.models.guided_diffusion import ADMUNet, GuidedDiffusion
 from perceptor_tpu_torch.models.guided_diffusion import config as adm_config
 from perceptor_tpu_torch.models.guided_diffusion import unet as adm_unet
 from perceptor_tpu_torch.models.guided_diffusion.unet import AttentionBlock
-from perceptor_tpu_torch.ops import attention as tattn
+tattn = importlib.import_module("perceptor_tpu_torch.ops.attention")
 from perceptor_tpu_torch.predictions import base as tbase
 
 import test_torch_cpu_guard  # noqa: F401  (the first-call torch.exp guard)

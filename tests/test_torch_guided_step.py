@@ -184,7 +184,12 @@ def test_port_imports_no_jax():
         "             'ops.conv2d_resample', 'ops.grid_sample', 'models.stylegan_xl',\n"
         "             'drawers.stylegan_xl', 'utils.checkpoints', 'utils.native_io',\n"
         "             'utils.pil_image', 'utils.session', 'utils.stats', 'utils.serving',\n"
-        "             'convert'):\n"
+        "             'convert', 'core.shapes', 'core.pytree', 'core.dtypes', 'core.init',\n"
+        "             'core.memo',\n"
+        "             'parallel', 'parallel.mesh', 'parallel.plan', 'parallel.collectives',\n"
+        "             'parallel.ring_attention', 'parallel.ulysses', 'parallel.partition',\n"
+        "             'parallel.pipeline', 'parallel.strategies', 'utils.hlo', 'utils.hlo_trace',\n"
+        "             'ops.groupnorm', 'ops.upsample_conv'):\n"
         "    importlib.import_module('perceptor_tpu_torch.' + name)\n"
         "from perceptor_tpu_torch import drawers, engine, losses, models, transforms, utils\n"
         "losses.CLIP, losses.OpenCLIP, models.CLIP, models.OpenCLIP, models.StableDiffusion\n"
@@ -198,6 +203,7 @@ def test_port_imports_no_jax():
         "models.SLIP, models.BLIP, models.CLOOB, models.LiT, models.RuCLIP, models.DeepImagePrior\n"
         "losses.SLIP, losses.BLIP, losses.CLOOB, losses.LiT, losses.RuCLIP\n"
         "drawers.DeepImagePrior, perceptor_tpu_torch.ops.deform_conv2d\n"
+        "perceptor_tpu_torch.parallel.strategies.register()\n"
         "models.StyleGANXL, drawers.StyleGANXL, utils.pil_image\n"
         "o = perceptor_tpu_torch.ops\n"
         "o.bias_act, o.filtered_lrelu, o.conv2d_resample, o.grid_sample, o.flow_warp, o.fma\n"

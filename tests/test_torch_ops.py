@@ -1,6 +1,7 @@
 """The port's ops, schedule, prediction algebra and loss against the JAX
 package, in fp32 on the CPU, with inputs from numpy."""
 
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,7 @@ from perceptor_tpu.predictions import LatentIndexedEpsPredictions as JPred
 from perceptor_tpu.schedules import scaled_linear_alphas_sigmas as j_sched
 from perceptor_tpu_torch.core.dtypes import cast_matmul_params_bf16
 from perceptor_tpu_torch.losses.prompt_bank import spherical_distance_squared as t_sph
-from perceptor_tpu_torch.ops import attention as tattn
+tattn = importlib.import_module("perceptor_tpu_torch.ops.attention")
 from perceptor_tpu_torch.ops.clamp import clamp_with_grad as t_clamp
 from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
 from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU, ScaleShiftGroupNormSiLU

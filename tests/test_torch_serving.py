@@ -29,7 +29,12 @@ from perceptor_tpu.models.stable_diffusion import StableDiffusion as JStableDiff
 from perceptor_tpu.models.stable_diffusion import config as jsd_config
 from perceptor_tpu.utils import serving as jserving
 from perceptor_tpu_torch import convert, losses
-from perceptor_tpu_torch.engine import export_guided_sample, guided_noise_shape, guided_sample
+from perceptor_tpu_torch.engine import (
+    draw_guided_noise,
+    export_guided_sample,
+    guided_noise_shape,
+    guided_sample,
+)
 from perceptor_tpu_torch.models.clip.configs import CLIPConfig
 from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
 from perceptor_tpu_torch.models.velocity_diffusion import VelocityDiffusion
@@ -252,6 +257,34 @@ def test_export_guided_sample_matches_live(models, inputs, clip_loss, options):
         loss_images="preview")
     assert torch.equal(served_latents, live_latents)
     assert torch.equal(served_history, live_history)
+
+
+def test_export_guided_sample_with_random_cutouts_matches_live(models, inputs, clip_loss):
+    """Random cutouts of the decoded images, with RePaint churn and eta > 0
+    drawing normals between the cutouts' uniforms: the exported program on
+    `draw_guided_noise` is bitwise the live sampler on the same generator."""
+    from perceptor_tpu_torch.transforms import RandomCutouts
+
+    _, sd = models
+    cond = torch.from_numpy(inputs["context2"][1:])
+    latents = torch.from_numpy(inputs["latents"])
+    pairs = sd.schedule_indices(2, from_index=700)
+    augment = RandomCutouts(4, cut_size=8)
+    options = dict(eta=0.5, n_resample=1, image_augment=augment)
+    blob = export_guided_sample(sd, [clip_loss], latents, pairs, cond, **options)
+    noise = draw_guided_noise(torch.Generator().manual_seed(7), latents, len(pairs), **options)
+    assert noise.shape == guided_noise_shape(latents, len(pairs), **options)
+    served_latents, served_history = serving.load_program(blob)(
+        sd.params, latents, torch.as_tensor(pairs), [serving.object_params(clip_loss)], cond,
+        noise, torch.tensor(0.5), torch.tensor(0.5))
+    live_latents, live_history = guided_sample(
+        sd, [clip_loss], latents, pairs, cond, guidance_scale=0.5,
+        generator=torch.Generator().manual_seed(7), **options)
+    assert torch.equal(served_latents, live_latents)
+    assert torch.equal(served_history, live_history)
+    other = guided_sample(sd, [clip_loss], latents, pairs, cond, guidance_scale=0.5,
+                          generator=torch.Generator().manual_seed(8), **options)[0]
+    assert not torch.equal(other, live_latents)
 
 
 def test_export_guided_sample_refusals(models, inputs, clip_loss):

@@ -12,6 +12,7 @@ on in-range ids (drawn directly, or from `InRangeTokenizer`), and the
 real-vocab tokenizer is held against JAX on its own.
 """
 
+import importlib
 import dataclasses
 
 import jax
@@ -38,7 +39,7 @@ from perceptor_tpu_torch.models.guided_diffusion.config import ADMConfig
 from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion, UNet
 from perceptor_tpu_torch.models.stable_diffusion import config as sd_config
 from perceptor_tpu_torch.models.stable_diffusion.convert import compvis_to_diffusers_unet
-from perceptor_tpu_torch.ops import attention as tattn
+tattn = importlib.import_module("perceptor_tpu_torch.ops.attention")
 from perceptor_tpu_torch.ops import flash_attention_kernel as tfa
 from perceptor_tpu_torch.predictions.base import PredictionAlgebra
 from perceptor_tpu_torch.schedules import indexed_schedule, karras_sigma_ramp
