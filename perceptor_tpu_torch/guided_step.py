@@ -31,6 +31,7 @@ arithmetic print the same line)::
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import sys
 from typing import Tuple
@@ -48,6 +49,7 @@ from perceptor_tpu_torch.models.stable_diffusion.unet import UNet
 from perceptor_tpu_torch.models.stable_diffusion.vae import AutoencoderKL
 from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions
 from perceptor_tpu_torch.schedules import scaled_linear_alphas_sigmas
+from perceptor_tpu_torch.utils import profiling
 
 FROM_INDEX = 800
 TO_INDEX = 780
@@ -108,6 +110,7 @@ class GuidedStep:
         self.clip_loss = PromptBankLoss(clip).add_encodings_(self.target)
         self.from_idx = torch.tensor([FROM_INDEX], device=device)
         self.to_idx = torch.tensor([TO_INDEX], device=device)
+        self._step_ids = itertools.count()
 
     def initial_inputs(self, batch: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """Seeded (latents, context): latents (N, 4, S/8, S/8) and a random
@@ -133,21 +136,34 @@ class GuidedStep:
         )
 
     def loss_and_noise(self, latents: torch.Tensor, context: torch.Tensor):
+        """(loss, noise); under a profiler the spans `unet`, `vae_decode` and
+        `clip_loss` (resize, normalize, tower, distance), and the backward
+        spans at their boundaries."""
         noise = self.unet(latents, self.from_idx.float(), context)
-        images = self.vae.decode(self.predictions(latents, noise).denoised_xs)
-        return self.clip_loss(images), noise
+        profiling.backward_span("unet", (latents,), (noise,))
+        denoised = self.predictions(latents, noise).denoised_xs
+        images = self.vae.decode(denoised)
+        profiling.backward_span("vae_decode", (denoised,), (images,))
+        with profiling.annotate("clip_loss"):
+            loss = self.clip_loss(images)
+        profiling.backward_span("clip_loss", (images,), (loss,))
+        return loss, noise
 
     def guided_denoise_step(self, latents: torch.Tensor, context: torch.Tensor):
-        """(stepped latents, loss) of one guided DDIM step 800 -> 780."""
-        latents = latents.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss, noise = self.loss_and_noise(latents, context)
-            (grad,) = torch.autograd.grad(loss, latents)
-        return self.step_with_gradient(latents.detach(), noise.detach(), grad), loss.detach()
+        """(stepped latents, loss) of one guided DDIM step 800 -> 780; span
+        `guided_step`, its `step` counting this instance's calls from 0."""
+        with profiling.annotate("guided_step", step=next(self._step_ids)):
+            latents = latents.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss, noise = self.loss_and_noise(latents, context)
+                with profiling.annotate("guidance_backward"):
+                    (grad,) = torch.autograd.grad(loss, latents)
+            return self.step_with_gradient(latents.detach(), noise.detach(), grad), loss.detach()
 
     def step_with_gradient(self, latents, noise, grad) -> torch.Tensor:
-        predictions = self.predictions(latents, noise)
-        return predictions.guided(grad, guidance_scale=GUIDANCE_SCALE).step(self.to_idx)
+        with profiling.annotate("guided_update"):
+            predictions = self.predictions(latents, noise)
+            return predictions.guided(grad, guidance_scale=GUIDANCE_SCALE).step(self.to_idx)
 
 
 def build(config: str = "sd-v1-512", device="cuda", seed: int = 0,

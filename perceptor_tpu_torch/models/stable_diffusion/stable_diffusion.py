@@ -42,6 +42,7 @@ sample with the weights placed on a DeviceMesh by the tensor-parallel rules
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from contextlib import contextmanager
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -62,7 +63,7 @@ from perceptor_tpu_torch.ops.resize import interpolate_bilinear
 from perceptor_tpu_torch.predictions import LatentIndexedEpsPredictions
 from perceptor_tpu_torch.predictions import base as prediction_base
 from perceptor_tpu_torch.schedules import indexed_schedule, scaled_linear_alphas_sigmas
-from perceptor_tpu_torch.utils import serving
+from perceptor_tpu_torch.utils import profiling, serving
 from perceptor_tpu_torch.utils.checkpoints import find_checkpoint, load_found
 
 # Published SD-1.x linear latent -> RGB preview factors (rows: the 4 latent
@@ -162,6 +163,7 @@ class StableDiffusion:
             CLIPTextEncoder, self.text_config, self.device, gen, dtype
         )
         self._tokenizer = tokenizer
+        self._sample_calls = itertools.count()
         alphas, sigmas = scaled_linear_alphas_sigmas()
         self.schedule_alphas = torch.as_tensor(alphas, device=self.device)
         self.schedule_sigmas = torch.as_tensor(sigmas, device=self.device)
@@ -341,9 +343,12 @@ class StableDiffusion:
         """texts -> (N, 77, width) fp32 text-encoder states; for the
         inpainting checkpoint a `Conditioning` with them, the latent masks
         of `inpainting_masks` and the posterior mode of the masked images
-        (pixels where the unblurred mask exceeds 0.5 set to 0.5)."""
-        tokens = tokenize(list(texts), self.text_config.context_length, tokenizer=self.tokenizer)
-        encodings = self.text_encoder(torch.from_numpy(tokens).to(self.device))
+        (pixels where the unblurred mask exceeds 0.5 set to 0.5). Span
+        `text_encode`, `rows` the prompt count."""
+        texts = list(texts)
+        with profiling.annotate("text_encode", rows=len(texts)):
+            tokens = tokenize(texts, self.text_config.context_length, tokenizer=self.tokenizer)
+            encodings = self.text_encoder(torch.from_numpy(tokens).to(self.device))
         if not self.inpainting:
             return encodings
         if inpainting_masks is None or inpainting_images is None:
@@ -432,25 +437,31 @@ class StableDiffusion:
         a context axis, the attention routed through ring/Ulysses
         (`parallel.partition.sampling`). With a data axis each data rank
         draws its stochastic noise for its own rows. `mesh=None` is the
-        single-device sampler, unchanged."""
-        self._check_method(method, eta, n_resample, cache_interval)
-        generator, uncond, cond, pairs, latents, init_latents = self._setup(
-            texts, negative_texts, n_steps, size, generator, from_index, to_index, init_images,
-            inpainting_masks, mask_blur,
-        )
-        options = dict(eta=eta, generator=generator, n_resample=n_resample, method=method,
-                       cache_interval=cache_interval, replace_diffused=replace_diffused)
-        if mesh is None:
-            latents = self.sample_loop(latents, pairs, uncond, cond, guidance_scale,
-                                       init_latents=init_latents, **options)
-            return self.decode(latents)
-        from perceptor_tpu_torch.parallel.partition import sampling
+        single-device sampler, unchanged.
 
-        with sampling(mesh, self.serving_modules(), latents, rules) as run:
-            latents = self.sample_loop(run.latents, pairs, run.rows(uncond), run.rows(cond),
-                                       guidance_scale, init_latents=run.rows(init_latents),
-                                       **options)
-            return run.gather(self.decode(latents))
+        Span `sample`, `call` counting this instance's calls from 0 and
+        `rows` the prompt count; inside it `text_encode`, one `sampler_step`
+        a schedule pair and `vae_decode`."""
+        self._check_method(method, eta, n_resample, cache_interval)
+        texts = list(texts)
+        with profiling.annotate("sample", call=next(self._sample_calls), rows=len(texts)):
+            generator, uncond, cond, pairs, latents, init_latents = self._setup(
+                texts, negative_texts, n_steps, size, generator, from_index, to_index,
+                init_images, inpainting_masks, mask_blur,
+            )
+            options = dict(eta=eta, generator=generator, n_resample=n_resample, method=method,
+                           cache_interval=cache_interval, replace_diffused=replace_diffused)
+            if mesh is None:
+                latents = self.sample_loop(latents, pairs, uncond, cond, guidance_scale,
+                                           init_latents=init_latents, **options)
+                return self.decode(latents)
+            from perceptor_tpu_torch.parallel.partition import sampling
+
+            with sampling(mesh, self.serving_modules(), latents, rules) as run:
+                latents = self.sample_loop(run.latents, pairs, run.rows(uncond),
+                                           run.rows(cond), guidance_scale,
+                                           init_latents=run.rows(init_latents), **options)
+                return run.gather(self.decode(latents))
 
     def _setup(
         self, texts, negative_texts, n_steps, size, generator,
@@ -497,18 +508,20 @@ class StableDiffusion:
         pair; `context2` is the uncond and cond encodings concatenated, or a
         `Conditioning` of them (with the cond's mask and masked latents).
         `cache` / `return_cache` pass through to the UNet's DeepCache
-        branch; with `return_cache` the result is (predictions, cache)."""
+        branch; with `return_cache` the result is (predictions, cache). The
+        combination is a `cfg_combine` span."""
         noise2 = self._unet(
             torch.cat([latents, latents]), torch.cat([from_idx, from_idx]).float(), context2,
             cache=cache, return_cache=return_cache,
         )
         if return_cache:
             noise2, cache = noise2
-        noise_uncond, noise_cond = noise2.chunk(2)
-        predictions = self._make_predictions(
-            latents, from_idx, noise_uncond
-        ).classifier_free_guidance(self._make_predictions(latents, from_idx, noise_cond),
-                                   guidance_scale)
+        with profiling.annotate("cfg_combine"):
+            noise_uncond, noise_cond = noise2.chunk(2)
+            predictions = self._make_predictions(
+                latents, from_idx, noise_uncond
+            ).classifier_free_guidance(self._make_predictions(latents, from_idx, noise_cond),
+                                       guidance_scale)
         return (predictions, cache) if return_cache else predictions
 
     @torch.no_grad()
@@ -555,7 +568,11 @@ class StableDiffusion:
 
     def _steps(self, latents, pairs, uncond, cond, guidance_scale, eta, generator, n_resample,
                method, cache_interval=1, init_latents=None, replace_diffused=False):
-        """Yields (latents, CFG predictions) after each (from, to) pair."""
+        """Yields (latents, CFG predictions) after each (from, to) pair. Span
+        `sampler_step` a pair, `step` its index, closed before the yield:
+        it holds `cfg_predictions`' `unet` and `cfg_combine`, then
+        `sampler_update` (each update of the latents: RePaint's resamples,
+        the DDIM or DPM++ step)."""
         n = latents.shape[0]
         context2 = torch.cat([getattr(c, "encodings", c) for c in (uncond, cond)])
         masks = getattr(cond, "inpainting_latent_masks", None)
@@ -567,26 +584,33 @@ class StableDiffusion:
         cache = None  # step 0 runs the whole UNet
         for i in range(pairs.shape[0]):
             from_idx, to_idx = pairs[i, 0].expand(n), pairs[i, 1].expand(n)
-            for _ in range(n_resample):  # RePaint
-                predictions = self.cfg_predictions(latents, from_idx, context2, guidance_scale)
-                latents = predictions.resample(to_idx, generator)
-            if cache_interval > 1:
-                predictions, cache = self.cfg_predictions(
-                    latents, from_idx, context2, guidance_scale,
-                    cache=cache if i % cache_interval else None, return_cache=True,
-                )
-            else:
-                predictions = self.cfg_predictions(latents, from_idx, context2, guidance_scale)
-            if method == "dpm++":
-                latents, prev_h = predictions.dpm_solver_pp_step(to_idx, prev_x0, prev_h, i == 0)
-                prev_x0 = predictions.denoised_xs
-            else:
-                latents = predictions.step(to_idx, eta=eta, generator=generator)
-            if replace:  # the known region, diffused to the step's target
-                alphas = self.schedule_alphas[to_idx][:, None, None, None]
-                sigmas = self.schedule_sigmas[to_idx][:, None, None, None]
-                fresh = prediction_base.randn_like(latents, generator)
-                latents = (init_latents * alphas + fresh * sigmas) * (1 - masks) + latents * masks
+            with profiling.annotate("sampler_step", step=i):
+                for _ in range(n_resample):  # RePaint
+                    predictions = self.cfg_predictions(latents, from_idx, context2,
+                                                       guidance_scale)
+                    with profiling.annotate("sampler_update"):
+                        latents = predictions.resample(to_idx, generator)
+                if cache_interval > 1:
+                    predictions, cache = self.cfg_predictions(
+                        latents, from_idx, context2, guidance_scale,
+                        cache=cache if i % cache_interval else None, return_cache=True,
+                    )
+                else:
+                    predictions = self.cfg_predictions(latents, from_idx, context2,
+                                                       guidance_scale)
+                with profiling.annotate("sampler_update"):
+                    if method == "dpm++":
+                        latents, prev_h = predictions.dpm_solver_pp_step(to_idx, prev_x0, prev_h,
+                                                                         i == 0)
+                        prev_x0 = predictions.denoised_xs
+                    else:
+                        latents = predictions.step(to_idx, eta=eta, generator=generator)
+                    if replace:  # the known region, diffused to the step's target
+                        alphas = self.schedule_alphas[to_idx][:, None, None, None]
+                        sigmas = self.schedule_sigmas[to_idx][:, None, None, None]
+                        fresh = prediction_base.randn_like(latents, generator)
+                        latents = ((init_latents * alphas + fresh * sigmas) * (1 - masks)
+                                   + latents * masks)
             yield latents, predictions
 
     # -- serving -------------------------------------------------------------

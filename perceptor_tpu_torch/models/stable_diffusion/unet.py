@@ -29,6 +29,7 @@ from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU
 from perceptor_tpu_torch.ops.layers import Conv2d, GroupNorm, LayerNorm, Linear
 from perceptor_tpu_torch.ops.upsample_conv import nearest_upsample_2x
 from perceptor_tpu_torch.parallel.plan import shard_spatial
+from perceptor_tpu_torch.utils import profiling
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0):
@@ -273,7 +274,12 @@ class UNet(nn.Module):
         feature that enters the last (shallowest) up level, `(out, cache)`;
         `cache=<that feature>` skips down levels 1.., the mid block and up
         levels ..n-2, running conv_in, down level 0 (for its skips), the last
-        up level on the cache and the head. The full path is unchanged."""
+        up level on the cache and the head. The full path is unchanged. Span
+        `unet`, `rows` the batch."""
+        with profiling.annotate("unet", rows=latents.shape[0]):
+            return self._forward(latents, timesteps, context, cache, return_cache)
+
+    def _forward(self, latents, timesteps, context, cache, return_cache):
         if not torch.is_tensor(timesteps):
             timesteps = torch.tensor(timesteps, device=latents.device)
         if timesteps.ndim == 0:

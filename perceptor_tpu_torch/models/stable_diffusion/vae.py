@@ -21,6 +21,7 @@ from perceptor_tpu_torch.ops.conv_matmul import Conv3x3
 from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU
 from perceptor_tpu_torch.ops.layers import Conv2d, GroupNorm, Linear
 from perceptor_tpu_torch.parallel.plan import shard_spatial
+from perceptor_tpu_torch.utils import profiling
 
 
 class ResnetBlock(nn.Module):
@@ -201,10 +202,13 @@ class AutoencoderKL(nn.Module):
         return mean * self.config.scaling_factor
 
     def decode(self, latents):
-        """latents NCHW (scaled) -> images NCHW [0,1], fp32."""
-        x = self.post_quant_conv(shard_spatial(latents / self.config.scaling_factor, h_axis=2))
-        x = self.decoder(x)
-        return (x.float() + 1.0) / 2.0
+        """latents NCHW (scaled) -> images NCHW [0,1], fp32; span
+        `vae_decode`, `rows` the batch."""
+        with profiling.annotate("vae_decode", rows=latents.shape[0]):
+            x = self.post_quant_conv(shard_spatial(latents / self.config.scaling_factor,
+                                                   h_axis=2))
+            x = self.decoder(x)
+            return (x.float() + 1.0) / 2.0
 
     def forward(self, images, generator: Optional[torch.Generator] = None):
         return self.decode(self.encode(images, generator))
