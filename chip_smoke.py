@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the flash-attention kernels from csrc/ with nvcc, then runs these
-phases, each printing one JSON line; any failure raises and the script
-exits non-zero without a result line:
+Builds the flash-attention and GroupNorm kernels from csrc/ with nvcc,
+then runs these phases, each printing one JSON line; any failure raises
+and the script exits non-zero without a result line:
 
 1. kernels        each CUDA kernel against its plain PyTorch version (fp32
                   arithmetic on the same bf16 inputs) at the three attention
@@ -19,6 +19,14 @@ exits non-zero without a result line:
                   d = 512 at S = 1024, and K/V of a single tile; then each
                   kernel's registers, spills, shared memory and resident
                   blocks per SM;
+   group_norm     the GroupNorm + activation kernels against their plain
+                  version, forward and backward, at the SD UNet's levels (B =
+                  1 and 16), the KL-VAE decoder's from 64 to 512 px (B = 1
+                  and 8), one channels-last input (copied to NCHW by the
+                  wrapper), ADM's 256 px scale-shift norm and v-diffusion's
+                  one-group FiLM: errors, dx bitwise repeatable, device ms
+                  against the byte bound, the plain version's and
+                  `F.group_norm`'s ms;
 2. guided_step    the full-width guided step (SD-1.x UNet + VAE at 512px,
                   CLIP ViT-B/32, batch 1, random weights from seed 0) for 5
                   steps: finite latents and loss, exactly 11 launches of each
@@ -39,11 +47,18 @@ exits non-zero without a result line:
                   UNet evaluation, and the VAE decode, through the kernels
                   against the plain attention route (and both against an
                   fp32 copy), same weights and inputs, bf16;
+   group_norm_steps  the GroupNorm launches of a guided step (74 calls
+                  forward and backward), of a batch-16 UNet evaluation (45)
+                  and of a batch-8 decode (29), each asserted, every input
+                  asserted NCHW (no copy in the wrapper), and the device
+                  ms of those calls: kernels, byte bound, plain version and
+                  `F.group_norm`;
 5. sample         `StableDiffusion(MODEL).sample` at 512px, batch 1, CFG 7:
                   a 20-step DDIM, a 10-step DPM-Solver++(2M) and an
                   img2img/RePaint run from the first image; launches
                   asserted (10 per batched UNet evaluation, one per VAE
-                  decode or encode), finite images, seconds per image, ms
+                  decode or encode; GroupNorm 45 per UNet evaluation, 29 per
+                  decode, 21 per encode), finite images, seconds per image, ms
                   per sampling step, text-encode and decode ms, peak memory;
 6. sample_profile one CFG sampling step under torch.profiler;
    sample_deepcache  the 20-step DDIM again with `cache_interval=3`
@@ -667,6 +682,37 @@ JPEG_ROUND_TRIP_MEAN = 0.1
 # bf16 before their products; 2e-2 of the reference's largest magnitude
 # leaves a 10x margin while a wrong tile, index or scale errs by O(1) of it.
 KERNEL_RTOL = 2e-2
+# The GroupNorm + activation sites of the main paths, (site, batch,
+# channels, H = W, groups, eps, (N, C) affine, activation, channels-last):
+# the SD UNet's levels (and the up path's concatenated widths) at the
+# guided step's batch 1 and b8's CFG batch 16, the KL-VAE decoder's from 64
+# to 512 px at 1 and 8, one channels-last input (the wrapper copies it to
+# NCHW), ADM's scale-shift norm at 256 px and v-diffusion's one-group FiLM.
+GN_SITES = (
+    *((f"sd_unet_{c}x{hw}_b{b}", b, c, hw, 32, 1e-5, False, "silu", False)
+      for b in (1, 16) for c, hw in ((320, 64), (640, 32), (1280, 16), (1280, 8), (2560, 8),
+                                     (1920, 16), (960, 32), (640, 64))),
+    *((f"vae_{c}x{hw}_b{b}", b, c, hw, 32, 1e-6, False, "silu", False) for b in (1, 8)
+      for c, hw in ((512, 64), (512, 128), (512, 256), (256, 256), (256, 512), (128, 512))),
+    ("vae_512x64_b1_channels_last", 1, 512, 64, 32, 1e-6, False, "silu", True),
+    *((f"adm256_{c}x{hw}", 1, c, hw, 32, 1e-5, True, "silu", False)
+      for c, hw in ((256, 256), (512, 32), (1024, 8))),
+    *((f"vdiff_film_{c}x{hw}", 1, c, hw, 1, 1e-5, True, "relu", False)
+      for c, hw in ((128, 256), (256, 128), (512, 32))),
+)
+# bf16 outputs (y, dx): one rounding to bf16 (2^-9 of a value) plus fp32
+# sums taken in another order, against the largest plain fp32 magnitude
+GN_RTOL = 1e-2
+# fp32 statistics and sums: summation order only
+GN_STATS_RTOL = 1e-4
+# GroupNormSiLU calls of the SD UNet (22 res blocks x 2 and conv_norm_out),
+# of the KL-VAE decoder (14 res blocks x 2 and conv_norm_out) and encoder
+# (10 x 2 and conv_norm_out); a guided step runs the UNet and the decoder
+# forward and backward
+GN_PER_UNET_EVAL = 45
+GN_PER_DECODE = 29
+GN_PER_ENCODE = 21
+GN_PER_GUIDED_STEP = GN_PER_UNET_EVAL + GN_PER_DECODE
 LSE_ATOL = 1e-3
 # Off the main path: fp32 inputs (the kernels' scalar path: the plain
 # version's fp32 arithmetic up to summation order, so 1e-4; d = 64 too) and
@@ -947,6 +993,233 @@ def phase_kernel_info(fa, library) -> None:
             "spill_loads": numbers(r"(\d+) bytes spill loads"),
         })
     emit({"phase": "kernel_info", "ok": True, "runtime": info, "ptxas": ptxas})
+
+
+def gn_inputs(case, seed):
+    """x (bf16, NCHW), scale, bias and dy of one GroupNorm site: activations
+    of mean 0.5 and spread 2, the affine near (1, 0), (C,) or (N, C) fp32."""
+    import torch
+
+    _, n, c, hw, _, _, per_sample, _, channels_last = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((n, c, hw, hw), generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+    layout = torch.channels_last if channels_last else torch.contiguous_format
+    x = x.contiguous(memory_format=layout)
+    shape = (n, c) if per_sample else (c,)
+    scale = 1 + 0.2 * torch.randn(shape, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(shape, generator=gen, device="cuda")
+    dy = torch.randn((n, c, hw, hw), generator=gen, device="cuda").to(torch.bfloat16)
+    return x, scale, bias, dy.contiguous(memory_format=layout)
+
+
+def phase_group_norm(gn) -> dict:
+    """The GroupNorm + activation kernels against their plain version on the
+    same bf16 inputs, forward and backward, at the main paths' shapes (GN_SITES):
+    the output and dx (in bf16) held within GN_RTOL of the plain fp32
+    result's largest magnitude, mean, rstd and the (N, C) sums within
+    GN_STATS_RTOL, two backward launches bitwise equal; then the device ms
+    of each against the byte bound (each input byte read once, each output
+    byte written once, at the card's peak), the plain version's ms and
+    `F.group_norm` + the activation (forward only), which the port never
+    calls. Returns {kernel: largest max |err|}."""
+    import torch
+    import torch.nn.functional as F
+
+    from perceptor_tpu_torch.utils.flops import card_peaks
+
+    _, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    library_act = {"silu": F.silu, "relu": F.relu, "gelu": F.gelu}
+    errors = {"gn_forward": 0.0, "gn_backward": 0.0}
+    records = []
+    for i, case in enumerate(GN_SITES):
+        site, n, c, hw, groups, eps, per_sample, act, channels_last = case
+        x, scale, bias, dy = gn_inputs(case, seed=200 + i)
+        y, mean, rstd = gn._gn_op(x, scale, bias, groups, eps, torch.bfloat16, act)
+        y_ref, mean_ref, rstd_ref = gn.group_norm_act_plain(x, scale, bias, groups, eps,
+                                                            torch.float32, act)
+        dx, dh, dhx = gn._gn_bwd_op(dy, x, scale, bias, mean, rstd, act)
+        dx2, _, _ = gn._gn_bwd_op(dy, x, scale, bias, mean, rstd, act)
+        dx_ref, dh_ref, dhx_ref = gn.group_norm_act_backward_plain(
+            dy, x.float(), scale, bias, mean, rstd, act)
+        torch.cuda.synchronize()
+        if not torch.equal(dx, dx2):
+            raise AssertionError(f"group norm backward at {site}: two launches differ")
+        if not (y.is_contiguous() and dx.is_contiguous()):
+            raise AssertionError(f"group norm at {site}: outputs not NCHW")
+        record = {"site": site, "shape": [n, c, hw, hw], "groups": groups, "eps": eps,
+                  "affine": "(N, C)" if per_sample else "(C,)", "activation": act,
+                  "channels_last": channels_last}
+        checks = {"y": ("gn_forward", y, y_ref, GN_RTOL),
+                  "mean": ("gn_forward", mean, mean_ref, GN_STATS_RTOL),
+                  "rstd": ("gn_forward", rstd, rstd_ref, GN_STATS_RTOL),
+                  "dx": ("gn_backward", dx, dx_ref, GN_RTOL),
+                  "dh_sum": ("gn_backward", dh, dh_ref, GN_STATS_RTOL),
+                  "dhx_sum": ("gn_backward", dhx, dhx_ref, GN_STATS_RTOL)}
+        for name, (kernel, got, ref, rtol) in checks.items():
+            err = float((got.float() - ref).abs().max())
+            scale_ref = float(ref.abs().max())
+            if not err <= rtol * scale_ref:
+                raise AssertionError(f"group norm {name} at {site}: max |err| {err} > "
+                                     f"{rtol} x {scale_ref}")
+            errors[kernel] = max(errors[kernel], err)
+            record[name] = {"max_abs_err": err, "rel_err": err / scale_ref, "rtol": rtol}
+        elements = x.numel()
+        timed = {
+            "forward_ms": lambda: gn._gn_op(x, scale, bias, groups, eps, torch.bfloat16, act),
+            "backward_ms": lambda: gn._gn_bwd_op(dy, x, scale, bias, mean, rstd, act),
+            "plain_forward_ms": lambda: gn.group_norm_act_plain(
+                x, scale, bias, groups, eps, torch.bfloat16, act),
+            "plain_backward_ms": lambda: gn.group_norm_act_backward_plain(
+                dy, x, scale, bias, mean, rstd, act),
+        }
+        if not per_sample and act in library_act:
+            timed["library_forward_ms"] = lambda: library_act[act](
+                F.group_norm(x, groups, scale.to(x.dtype), bias.to(x.dtype), eps))
+        for name, fn in timed.items():
+            record[name] = time_ms(fn)
+        # x in, y out (2 bytes each); x and dy in, dx out
+        record["forward_bound_ms"] = 4 * elements / peak_bw * 1e3
+        record["backward_bound_ms"] = 6 * elements / peak_bw * 1e3
+        record["forward_roofline"] = record["forward_bound_ms"] / record["forward_ms"]
+        record["backward_roofline"] = record["backward_bound_ms"] / record["backward_ms"]
+        records.append(record)
+    emit({"phase": "group_norm", "ok": True, "rtol": GN_RTOL, "stats_rtol": GN_STATS_RTOL,
+          "sites": records})
+    return errors
+
+
+def record_gn_calls(gn, fn) -> list:
+    """Runs `fn()` with the GroupNorm ops watched: one (kind, x shape, x
+    dtype, per-sample affine, groups, eps, output dtype, activation, whether
+    x's memory is other than NCHW, so the wrapper copies it) per call, kind
+    "forward" or "backward"."""
+    calls = []
+    ops = gn._gn_op, gn._gn_bwd_op
+
+    def forward(x, scale, bias, groups, eps, out_dtype, act):
+        calls.append(("forward", tuple(x.shape), x.dtype, max(scale.ndim, bias.ndim) == 2,
+                      groups, eps, out_dtype, act, not x.is_contiguous()))
+        return ops[0](x, scale, bias, groups, eps, out_dtype, act)
+
+    def backward(dy, x, scale, bias, mean, rstd, act):
+        calls.append(("backward", tuple(x.shape), x.dtype, max(scale.ndim, bias.ndim) == 2,
+                      mean.shape[1], None, dy.dtype, act, not x.is_contiguous()))
+        return ops[1](dy, x, scale, bias, mean, rstd, act)
+
+    gn._gn_op, gn._gn_bwd_op = forward, backward
+    try:
+        fn()
+    finally:
+        gn._gn_op, gn._gn_bwd_op = ops
+    return calls
+
+
+def time_gn_calls(gn, calls, peak_bw) -> dict:
+    """Device ms of every recorded call, summed: the kernels, their byte
+    bound (each input byte read once and each output byte written once, at
+    the card's peak), the plain version, and for the forward
+    `F.group_norm` + the activation in the input's dtype, which the port
+    never calls."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    library_act = {"silu": F.silu, "relu": F.relu, "gelu": F.gelu, "none": lambda v: v}
+    totals = collections.Counter()
+    for i, (call, count) in enumerate(sorted(collections.Counter(calls).items(), key=str)):
+        kind, shape, dtype, per_sample, groups, eps, out_dtype, act, channels_last = call
+        layout = torch.channels_last if channels_last else torch.contiguous_format
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(
+            memory_format=layout)
+        affine = shape[:2] if per_sample else shape[1:2]
+        scale = 1 + 0.2 * torch.randn(affine, generator=gen, device="cuda")
+        bias = 0.2 * torch.randn(affine, generator=gen, device="cuda")
+        item = x.element_size()
+        if kind == "forward":
+            totals["forward_ms"] += count * time_ms(
+                lambda: gn._gn_op(x, scale, bias, groups, eps, out_dtype, act))
+            totals["plain_forward_ms"] += count * time_ms(
+                lambda: gn.group_norm_act_plain(x, scale, bias, groups, eps, out_dtype, act))
+            if not per_sample:
+                w, b = scale.to(dtype), bias.to(dtype)
+                totals["library_forward_ms"] += count * time_ms(
+                    lambda: library_act[act](F.group_norm(x, groups, w, b, eps)))
+            out_item = torch.empty((), dtype=out_dtype).element_size()
+            totals["forward_bound_ms"] += count * x.numel() * (item + out_item) / peak_bw * 1e3
+        else:
+            _, mean, rstd = gn._gn_op(x, scale, bias, groups, 1e-5, out_dtype, act)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(out_dtype).contiguous(
+                memory_format=layout)
+            totals["backward_ms"] += count * time_ms(
+                lambda: gn._gn_bwd_op(dy, x, scale, bias, mean, rstd, act))
+            totals["plain_backward_ms"] += count * time_ms(
+                lambda: gn.group_norm_act_backward_plain(dy, x, scale, bias, mean, rstd, act))
+            totals["backward_bound_ms"] += (count * x.numel() * (2 * item + dy.element_size())
+                                            / peak_bw * 1e3)
+    return dict(totals)
+
+
+def phase_group_norm_steps(gn, step, sd) -> dict:
+    """GN_LAUNCHES of a guided step (GN_PER_GUIDED_STEP forward and backward
+    calls, each of two launches), of one batch-16 UNet evaluation (a b8
+    step: GN_PER_UNET_EVAL forward calls) and of a batch-8 decode
+    (GN_PER_DECODE); each asserted, and every call's input asserted NCHW
+    memory, which the kernels take without a copy. Then the device ms of each one's
+    GroupNorm calls (`time_gn_calls`), the b8 step's with the decode's over
+    the call's 20 steps. Returns the launches per guided step."""
+    import torch
+
+    from perceptor_tpu_torch.utils.flops import card_peaks
+
+    _, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    latents, context = step.initial_inputs()
+    step.guided_denoise_step(latents, context)  # warm-up
+    torch.cuda.synchronize()
+    gn.reset_launches()
+    steps = 2
+    for _ in range(steps):
+        latents, _ = step.guided_denoise_step(latents, context)
+    torch.cuda.synchronize()
+    guided = per_step(gn.GN_LAUNCHES, steps)
+    want = {name: GN_PER_GUIDED_STEP for name in gn.GN_LAUNCHES}
+    if guided != want:
+        raise AssertionError(f"guided step: GroupNorm launches per step {guided}, want {want}")
+    guided_calls = record_gn_calls(gn, lambda: step.guided_denoise_step(latents, context))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b8 = torch.randn((16, 4, IMAGE_SIZE // 8, IMAGE_SIZE // 8), generator=gen, device="cuda")
+    with torch.no_grad():
+        context = sd.conditioning([PROMPT] * 16)
+        torch.cuda.synchronize()
+        gn.reset_launches()
+        unet_calls = record_gn_calls(gn, lambda: sd.predictions(b8, 500, context))
+        torch.cuda.synchronize()
+        unet = dict(gn.GN_LAUNCHES)
+        gn.reset_launches()
+        decode_calls = record_gn_calls(gn, lambda: sd.decode(b8[:8]))
+        torch.cuda.synchronize()
+        decode = dict(gn.GN_LAUNCHES)
+    for name, got, calls in (("b8 UNet evaluation", unet, GN_PER_UNET_EVAL),
+                             ("batch-8 decode", decode, GN_PER_DECODE)):
+        want = {"gn_stats": calls, "gn_apply": calls, "gn_bwd_sums": 0, "gn_bwd_dx": 0}
+        if got != want:
+            raise AssertionError(f"{name}: GroupNorm launches {got}, want {want}")
+    for name, recorded in (("guided step", guided_calls), ("b8 UNet evaluation", unet_calls),
+                           ("batch-8 decode", decode_calls)):
+        copied = [call[:2] for call in recorded if call[-1]]
+        if copied:
+            raise AssertionError(f"{name}: GroupNorm inputs not NCHW {copied}")
+    unet_ms = time_gn_calls(gn, unet_calls, peak_bw)
+    decode_ms = time_gn_calls(gn, decode_calls, peak_bw)
+    emit({"phase": "group_norm_steps", "ok": True, "per_guided_step": guided,
+          "per_b8_unet_evaluation": unet, "per_b8_decode": decode,
+          "per_b8_step_20_steps": {k: unet[k] + decode[k] / 20 for k in unet},
+          "guided_step_ms": time_gn_calls(gn, guided_calls, peak_bw),
+          "b8_unet_evaluation_ms": unet_ms, "b8_decode_ms": decode_ms,
+          "b8_step_ms": {k: unet_ms.get(k, 0.0) + decode_ms.get(k, 0.0) / 20
+                         for k in set(unet_ms) | set(decode_ms)}})
+    return guided
 
 
 def per_step(launches: dict, steps: int) -> dict:
@@ -1248,11 +1521,13 @@ class PartTimer:
         return {k: sum(launched[k] for _, _, launched in self.calls[name]) for k in self.fa.LAUNCHES}
 
 
-def phase_sample(fa, sd):
+def phase_sample(fa, sd, gn):
     """`StableDiffusion.sample` at 512px, batch 1, CFG 7: a 20-step DDIM, a
     10-step DPM-Solver++(2M) and an img2img/RePaint run from the first
     image. Per run: the schedule's k, flash launches (the loop's per UNet
-    evaluation, the decode's and encode's, each asserted), the image
+    evaluation, the decode's and encode's, each asserted), the GroupNorm
+    launches (GN_PER_UNET_EVAL a UNet evaluation, GN_PER_DECODE and
+    GN_PER_ENCODE a decode and an encode; asserted), the image
     (asserted finite, (1, 3, 512, 512)), seconds per image, the text
     encoding, the UNet loop and the decode apart, and peak memory. Returns
     (launches, launches per UNet evaluation)."""
@@ -1275,12 +1550,14 @@ def phase_sample(fa, sd):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
+        gn.reset_launches()
         t0 = time.perf_counter()
         images = sd.sample([PROMPT], guidance_scale=CFG_SCALE, size=size, generator=generator(0),
                            **options)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
+        gn_launches = dict(gn.GN_LAUNCHES)
         timer.remove()
         parts = {part: timer.launches(part) for part in timer.calls}
         measured = per_step(parts["sample_loop"], evals)
@@ -1294,13 +1571,19 @@ def phase_sample(fa, sd):
             raise AssertionError(f"sample {name}: the text encoder launched a flash kernel")
         if launches != {k: sum(p[k] for p in parts.values()) for k in launches}:
             raise AssertionError(f"sample {name}: launches {launches} outside {parts}")
+        gn_calls = (GN_PER_UNET_EVAL * evals + GN_PER_DECODE * vae_calls["decode"]
+                    + GN_PER_ENCODE * vae_calls["encode"])
+        gn_want = {"gn_stats": gn_calls, "gn_apply": gn_calls, "gn_bwd_sums": 0, "gn_bwd_dx": 0}
+        if gn_launches != gn_want:
+            raise AssertionError(f"sample {name}: GroupNorm launches {gn_launches}, "
+                                 f"want {gn_want}")
         if images.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not torch.isfinite(images).all():
             raise AssertionError(f"sample {name}: images {tuple(images.shape)} not finite")
         loop_ms = timer.ms("sample_loop")
         runs.append({
             "run": name, "options": {k: v for k, v in options.items() if k != "init_images"},
             "k": k, "unet_evals": evals, "launches": launches,
-            "launches_per_unet_eval": measured,
+            "launches_per_unet_eval": measured, "group_norm_launches": gn_launches,
             "images_shape": list(images.shape), "image_mean": float(images.mean()),
             "image_std": float(images.std()), "s_per_image": wall,
             "ms_per_sampling_step": loop_ms / k, "ms_per_unet_eval": loop_ms / evals,
@@ -4377,6 +4660,7 @@ def main() -> int:
     from perceptor_tpu_torch.models.guided_diffusion import GuidedDiffusion
     from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
     from perceptor_tpu_torch.ops import flash_attention_kernel as fa
+    from perceptor_tpu_torch.ops import groupnorm as gn
     from perceptor_tpu_torch.utils.bench_env import triton_imports
     from perceptor_tpu_torch.utils.flops import card_peaks
 
@@ -4398,6 +4682,7 @@ def main() -> int:
 
     errors = phase_kernels(fa)
     phase_kernel_info(fa, library)
+    phase_group_norm(gn)
     t0 = time.perf_counter()
     step = guided_step.build("sd-v1-512", device="cuda", seed=0)
     emit({"phase": "model_build", "ok": True, "seconds": time.perf_counter() - t0})
@@ -4412,7 +4697,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sd = StableDiffusion(MODEL, device="cuda", seed=0)
     emit({"phase": "sd_build", "ok": True, "model": MODEL, "seconds": time.perf_counter() - t0})
-    launches["sample"], measured["sample"] = phase_sample(fa, sd)
+    phase_group_norm_steps(gn, step, sd)
+    launches["sample"], measured["sample"] = phase_sample(fa, sd, gn)
     phase_sample_profile(sd)
     launches["sample_deepcache"], deepcache_measured = phase_sample_deepcache(fa, sd)
     measured.update(deepcache_measured)

@@ -67,7 +67,9 @@ class AttnBlock(nn.Module):
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         out = attention(q[:, None], k[:, None], v[:, None], use_flash=self.use_flash)[:, 0]
         out = self.to_out[0](out)
-        return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
+        # the residual first: an elementwise op's output takes its first
+        # operand's memory layout, so the decoder stays NCHW after the block
+        return residual + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class MidBlock(nn.Module):

@@ -12,7 +12,8 @@ Layout (batch, heads, seq, head_dim). The kernels live in `csrc/`:
 their gradients and the accumulators in registers), `flash_attention.cu`
 the C interface and the fp32 kernels. Every source there is compiled by
 nvcc for sm_90a into one library in `build/` at first use and loaded with
-ctypes.
+ctypes; `ops/groupnorm.py` binds the GroupNorm kernels of the same library
+(`csrc/groupnorm.cu`).
 
 Each kernel is an op of the `perceptor_tpu_torch` library
 (`torch.library.custom_op`: `perceptor_tpu_torch::flash_fwd`, `::flash_dq`,
@@ -122,7 +123,7 @@ _lib_lock = threading.Lock()
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the flash-attention kernels cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return found
 
 

@@ -7,8 +7,10 @@ so does the port:
 - a stats **bag** is a plain `{name: Moments}` dict; `report(bag, name,
   values)` returns a new bag, so a step can carry its statistics without
   global state;
-- the moments are fp32 tensors on the values' device (no host read-back
-  while reporting);
+- the moments are float64 tensors on the values' device (no host
+  read-back while reporting): the std is sqrt(E[x^2] - E[x]^2), which in
+  fp32 sums loses about six digits where the mean is ten times the std
+  (the JAX package keeps fp32 sums, the upstream's `_reduce_dtype`);
 - `all_reduce(bag, group=None)` sums a bag over the processes of a
   `torch.distributed` group when one is initialized (JAX's `axis_sum` over
   a mesh axis), and is the identity otherwise;
@@ -28,8 +30,8 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Moments:
-    """`[num, sum, sum_of_squares]` of one statistic, fp32 tensors; the
-    float64 accumulation happens on the host in `Collector`."""
+    """`[num, sum, sum_of_squares]` of one statistic, float64 tensors; the
+    windows' differences are taken on the host in `Collector`."""
 
     count: torch.Tensor
     total: torch.Tensor
@@ -37,12 +39,13 @@ class Moments:
 
     @classmethod
     def zero(cls, device=None) -> "Moments":
-        z = torch.zeros((), dtype=torch.float32, device=device)
+        z = torch.zeros((), dtype=torch.float64, device=device)
         return cls(count=z, total=z, total_sq=z)
 
     def add(self, values) -> "Moments":
         """Accumulate any number of scalars (any shape; flattened)."""
-        v = torch.as_tensor(values, dtype=torch.float32, device=self.count.device).reshape(-1)
+        v = torch.as_tensor(values, dtype=torch.float32, device=self.count.device)
+        v = v.reshape(-1).double()  # the values as fp32, as JAX's; their sums in float64
         return Moments(
             count=self.count + v.numel(),
             total=self.total + v.sum(),

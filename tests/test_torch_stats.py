@@ -4,9 +4,11 @@ the same `num`, `mean` and `std` (JAX's own cases of tests/test_stats.py:
 windows, keep_previous, the single-sample std, the regex filter, merge,
 report0), and `all_reduce` sums a bag over a one-process gloo group.
 
-Both packages accumulate the moments in fp32 and difference them in float64
-on the host from the same fp32 sums, so the collectors agree to fp32
-rounding of the sums (1e-6 relative).
+JAX accumulates the moments in fp32, the port in float64 (from the same
+fp32 values), and both difference them in float64 on the host, so the
+collectors agree to fp32 rounding of the sums (1e-6 relative) where the
+mean is not far above the std; where it is, the port's std still matches
+numpy's float64 one.
 """
 
 import numpy as np
@@ -113,3 +115,21 @@ def test_all_reduce_is_the_identity_without_a_group_and_sums_over_one(tmp_path):
         assert float(bag0["z"].count) == 1
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mean_over_std,n", [(10.0, 3), (100.0, 64), (1e3, 1000)])
+def test_std_keeps_its_digits_where_the_mean_dwarfs_it(mean_over_std, n):
+    """A statistic whose mean is far above its std (a loss near 1.25 that
+    moves by 0.13): the port's std matches numpy's float64 one to 1e-6,
+    one value reported at a time as a training loop does."""
+    rng = np.random.default_rng(int(mean_over_std))
+    values = (mean_over_std + rng.standard_normal(n)).astype(np.float32) * np.float32(0.13)
+    bag = stats.zeros(["loss"])
+    for v in values:
+        bag = stats.report(bag, "loss", torch.tensor(v))
+    collector = stats.Collector()
+    collector.update(stats.all_reduce(bag))
+    want = values.astype(np.float64)
+    assert collector.num("loss") == n
+    assert np.isclose(collector.mean("loss"), want.mean(), rtol=1e-6)
+    assert np.isclose(collector.std("loss"), want.std(), rtol=1e-6, atol=1e-7)
