@@ -357,6 +357,17 @@ LDM_SITES = (
     ("kl_f8_mid_attn_256", 1, 1, 1024, 512, 1),
 )
 LDM_SITE_PATHS = ("ldm_text2image", "ldm_face", "ldm_text2image_decode")
+# SDXL at 1024px (`sdxl_sample`, forward only): the UNet's self-attention
+# with the CFG pair of 4 prompts batched, 20 heads over 32 x 32 = 1,024
+# tokens in its 60 blocks at that level and 10 heads over 64 x 64 = 4,096 in
+# its 10 others (d = 64), and the decoder's mid block over 128 x 128 =
+# 16,384 latents (one head of 512).
+# (site, batch, heads, seq, head_dim, launches per UNet evaluation / decode)
+SDXL_SITES = (
+    ("sdxl_unet_32x32_attn1_cfg", 8, 20, 1024, 64, 60),
+    ("sdxl_unet_64x64_attn1_cfg", 8, 10, 4096, 64, 10),
+    ("sdxl_vae_mid_attn_1024", 4, 1, 16384, 512, 1),
+)
 # The one table of expected launches: each kernel's launches per step of
 # each path, by entry point. The guided step is one UNet evaluation (5
 # self-attentions at level 0, S = 4096, and 5 at level 1, S = 1024) and the
@@ -371,6 +382,10 @@ PER_STEP = {
     # forward twice; the VAE is not rematerialized (as in JAX)
     "guided_step_remat": {"flash_fwd": 21, "flash_dq": 11, "flash_dkv": 11},
     "sample": {"flash_fwd": 10, "flash_dq": 0, "flash_dkv": 0},
+    # SDXL at 1024px, per batched CFG evaluation: 70 transformer blocks,
+    # 60 at 32 x 32 (1,024 tokens) and 10 at 64 x 64 (4,096), each one
+    # self-attention at d = 64; cross-attention (77 keys) takes the plain route
+    "sdxl_sample": {"flash_fwd": 70, "flash_dq": 0, "flash_dkv": 0},
     "guided_sample": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
     "guided_sample_text": {"flash_fwd": 21, "flash_dq": 21, "flash_dkv": 21},
     # drawer -> CLIP ViT-B/32: 50 image tokens and a masked text tower
@@ -479,6 +494,11 @@ CFG_GUIDED_SITE_LAUNCHES = {
     site: n * (2 if site.startswith("unet") else 1) for site, *_, n in SITES
 }
 MODEL = "runwayml/stable-diffusion-v1-5"
+SDXL_MODEL = "stabilityai/stable-diffusion-xl-base-1.0"
+SDXL_SIZE = 1024
+SDXL_BATCH = 4
+SDXL_STEPS = 20
+SDXL_CFG_SCALE = 5.0
 IMAGE_SIZE = 512
 PROMPT = "a photograph of an astronaut riding a horse on the moon"
 CFG_SCALE = 7.0
@@ -686,14 +706,22 @@ KERNEL_RTOL = 2e-2
 # channels, H = W, groups, eps, (N, C) affine, activation, channels-last):
 # the SD UNet's levels (and the up path's concatenated widths) at the
 # guided step's batch 1 and b8's CFG batch 16, the KL-VAE decoder's from 64
-# to 512 px at 1 and 8, one channels-last input (the wrapper copies it to
-# NCHW), ADM's scale-shift norm at 256 px and v-diffusion's one-group FiLM.
+# to 512 px at 1 and 8, SDXL's UNet at its CFG batch 8 and its decoder at
+# 1024 px, one channels-last input (the wrapper copies it to NCHW), ADM's
+# scale-shift norm at 256 px and v-diffusion's one-group FiLM.
 GN_SITES = (
     *((f"sd_unet_{c}x{hw}_b{b}", b, c, hw, 32, 1e-5, False, "silu", False)
       for b in (1, 16) for c, hw in ((320, 64), (640, 32), (1280, 16), (1280, 8), (2560, 8),
                                      (1920, 16), (960, 32), (640, 64))),
     *((f"vae_{c}x{hw}_b{b}", b, c, hw, 32, 1e-6, False, "silu", False) for b in (1, 8)
       for c, hw in ((512, 64), (512, 128), (512, 256), (256, 256), (256, 512), (128, 512))),
+    # SDXL at 1024px: the UNet's levels and the up path's concatenated widths at
+    # the CFG batch 8, and the decoder of 4 images from 128 to 1024 px
+    *((f"sdxl_unet_{c}x{hw}_b8", 8, c, hw, 32, 1e-5, False, "silu", False)
+      for c, hw in ((320, 128), (640, 128), (960, 128), (320, 64), (640, 64), (960, 64),
+                    (1280, 64), (1920, 64), (640, 32), (1280, 32), (1920, 32), (2560, 32))),
+    *((f"sdxl_vae_{c}x{hw}_b4", 4, c, hw, 32, 1e-6, False, "silu", False)
+      for c, hw in ((512, 128), (512, 256), (512, 512), (256, 512), (256, 1024), (128, 1024))),
     ("vae_512x64_b1_channels_last", 1, 512, 64, 32, 1e-6, False, "silu", True),
     *((f"adm256_{c}x{hw}", 1, c, hw, 32, 1e-5, True, "silu", False)
       for c, hw in ((256, 256), (512, 32), (1024, 8))),
@@ -713,6 +741,8 @@ GN_PER_UNET_EVAL = 45
 GN_PER_DECODE = 29
 GN_PER_ENCODE = 21
 GN_PER_GUIDED_STEP = GN_PER_UNET_EVAL + GN_PER_DECODE
+# SDXL's UNet: 17 res blocks x 2 and conv_norm_out; its decoder is SD's
+GN_PER_SDXL_UNET_EVAL = 35
 LSE_ATOL = 1e-3
 # Off the main path: fp32 inputs (the kernels' scalar path: the plain
 # version's fp32 arithmetic up to summation order, so 1e-4; d = 64 too) and
@@ -864,10 +894,13 @@ def projection_site_inputs(b, h, s, d, seed):
 
 # how each LDM site's module hands q, k and v to `attention`
 LDM_SITE_INPUTS = (projection_site_inputs, adm_site_inputs, site_inputs)
+# and each SDXL site's: `CrossAttention`'s projections, the VAE's `AttnBlock`
+SDXL_SITE_INPUTS = (projection_site_inputs, projection_site_inputs, site_inputs)
 
 
 def phase_kernels(fa) -> dict:
-    """Each kernel against its plain version at the main paths' shapes."""
+    """Each kernel against its plain version at the main paths' shapes; at
+    SDXL_SITES, whose path runs no backward, the forward alone."""
     import torch
 
     errors = {name: 0.0 for name in REPLACES}
@@ -921,12 +954,40 @@ def phase_kernels(fa) -> dict:
             kernel = OUT_KERNEL[record["out"]]
             errors[kernel] = max(errors[kernel], record["max_abs_err"])
             cfg_sites.append({"site": site, **record})
+    sdxl_sites = []
+    for i, ((site, b, h, s, d, _), make_inputs) in enumerate(zip(SDXL_SITES, SDXL_SITE_INPUTS)):
+        record = check_forward(fa, site, make_inputs(b, h, s, d, seed=120 + i))
+        errors["flash_fwd"] = max(errors["flash_fwd"], record["o"]["max_abs_err"])
+        sdxl_sites.append(record)
     extra = []
     for i, case in enumerate(EXTRA_CASES):
         extra.extend(check_strided(fa, case, seed=50 + i))
     emit({"phase": "kernels", "ok": True, "sites": sites, "cfg_sites": cfg_sites,
-          "off_path": extra})
+          "sdxl_sites": sdxl_sites, "off_path": extra})
     return errors
+
+
+def check_forward(fa, site, inputs) -> dict:
+    """The forward kernel against its plain version on one site's bf16 q, k
+    and v (a path that runs no backward): o within KERNEL_RTOL of the plain
+    fp32 result's largest magnitude, lse within LSE_ATOL; raises above
+    them."""
+    import torch
+
+    q, k, v, _ = inputs
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_forward(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_forward_plain(q.float(), k.float(), v.float(), scale)
+    torch.cuda.synchronize()
+    err, tol = float((o.float() - o_ref).abs().max()), KERNEL_RTOL * float(o_ref.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"flash_fwd o at {site}: max |err| {err} > {tol}")
+    lse_err = float((lse - lse_ref).abs().max())
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {LSE_ATOL}")
+    return {"site": site, "shape": list(q.shape), "q_strides": list(q.stride()),
+            "o": {"max_abs_err": err, "tol": tol}, "lse": {"max_abs_err": lse_err, "tol": LSE_ATOL}}
 
 
 OUT_KERNEL = {"o": "flash_fwd", "dq": "flash_dq", "dk": "flash_dkv", "dv": "flash_dkv"}
@@ -1598,6 +1659,70 @@ def phase_sample(fa, sd, gn):
     emit({"phase": "sample", "ok": True, "model": MODEL, "guidance_scale": CFG_SCALE,
           "runs": runs})
     return totals, measured
+
+
+def phase_sdxl_sample(fa, gn):
+    """`StableDiffusion(SDXL_MODEL).sample` at SDXL_SIZE px: SDXL_BATCH
+    prompts, CFG SDXL_CFG_SCALE (zeros for the unconditional half),
+    SDXL_STEPS-step DDIM. Flash launches per UNet evaluation (PER_STEP) and
+    per decode (PER_VAE_CALL), GroupNorm launches (GN_PER_SDXL_UNET_EVAL an
+    evaluation, GN_PER_DECODE a decode), none from the two text towers, the
+    images finite; seconds, ms a step and peak memory. Returns (launches,
+    launches per UNet evaluation)."""
+    import torch
+
+    from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
+
+    t0 = time.perf_counter()
+    sd = StableDiffusion(SDXL_MODEL, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = [PROMPT, "a watercolor of a fox in the snow", "a castle", "a robot reading"]
+    prompts = (prompts * SDXL_BATCH)[:SDXL_BATCH]
+    size = (SDXL_SIZE, SDXL_SIZE)
+    options = dict(n_steps=SDXL_STEPS, guidance_scale=SDXL_CFG_SCALE, size=size)
+    sd.sample(prompts, generator=torch.Generator(device="cuda").manual_seed(1), **options)
+    k = len(sd.schedule_indices(SDXL_STEPS))
+    timer = PartTimer(fa, sd, ("conditioning", "sample_loop", "decode"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    gn.reset_launches()
+    t0 = time.perf_counter()
+    images = sd.sample(prompts, generator=torch.Generator(device="cuda").manual_seed(0),
+                       **options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    gn_launches = dict(gn.GN_LAUNCHES)
+    timer.remove()
+    parts = {part: timer.launches(part) for part in timer.calls}
+    measured = per_step(parts["sample_loop"], k)
+    check_per_step("sdxl_sample", measured)
+    if parts["decode"] != PER_VAE_CALL:
+        raise AssertionError(f"sdxl_sample: decode launched {parts['decode']}")
+    if any(parts["conditioning"].values()):
+        raise AssertionError("sdxl_sample: a text tower launched a flash kernel")
+    gn_calls = GN_PER_SDXL_UNET_EVAL * k + GN_PER_DECODE
+    gn_want = {"gn_stats": gn_calls, "gn_apply": gn_calls, "gn_bwd_sums": 0, "gn_bwd_dx": 0}
+    if gn_launches != gn_want:
+        raise AssertionError(f"sdxl_sample: GroupNorm launches {gn_launches}, want {gn_want}")
+    shape = (SDXL_BATCH, 3, SDXL_SIZE, SDXL_SIZE)
+    if tuple(images.shape) != shape or not torch.isfinite(images).all():
+        raise AssertionError(f"sdxl_sample: images {tuple(images.shape)} not finite")
+    loop_ms = timer.ms("sample_loop")
+    emit({"phase": "sdxl_sample", "ok": True, "model": SDXL_MODEL, "build_s": build_s,
+          "parameters": {part: sum(p.numel() for p in getattr(sd, part).parameters())
+                         for part in sd.parts},
+          "k": k, "launches": launches, "launches_per_unet_eval": measured,
+          "group_norm_launches": gn_launches, "images_shape": list(images.shape),
+          "image_mean": float(images.mean()), "image_std": float(images.std()),
+          "s_per_call": wall, "ms_per_sampling_step": loop_ms / k,
+          "text_encode_ms": timer.ms("conditioning"), "decode_ms": timer.ms("decode"),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    del sd
+    torch.cuda.empty_cache()
+    return launches, measured
 
 
 def phase_sample_profile(sd) -> dict:
@@ -4718,6 +4843,7 @@ def main() -> int:
     phase_parallel_collectives(fa)
     del sd
     torch.cuda.empty_cache()
+    launches["sdxl_sample"], measured["sdxl_sample"] = phase_sdxl_sample(fa, gn)
     # SD inpainting; its guided phase shares the guided step's loss
     t0 = time.perf_counter()
     sd = StableDiffusion(INPAINT_MODEL, device="cuda", seed=0)

@@ -633,7 +633,11 @@ def _hf_blocks(hf: Mapping, src: str, dst: str, layers: int, sd: StateDict) -> N
 def text_encoder_state_dict_from_hf(hf_state_dict: Mapping, cfg: TextConfig,
                                     prefix: str = "text_model") -> StateDict:
     """An HF CLIPTextModel state_dict (SD's text encoder, under `prefix`) ->
-    the port's `CLIPTextEncoder` (open_clip names)."""
+    the port's `CLIPTextEncoder` (open_clip names). For a config with a
+    `projection_dim` (SDXL's second tower, an HF
+    `CLIPTextModelWithProjection`), the linear `text_projection.weight`
+    (proj, width) beside `prefix` becomes open_clip's (width, proj)
+    `text_projection`."""
     hf = hf_state_dict
     sd: StateDict = {
         "token_embedding.weight": torch.as_tensor(hf[f"{prefix}.embeddings.token_embedding.weight"]),
@@ -643,6 +647,8 @@ def text_encoder_state_dict_from_hf(hf_state_dict: Mapping, cfg: TextConfig,
         "ln_final.bias": torch.as_tensor(hf[f"{prefix}.final_layer_norm.bias"]),
     }
     _hf_blocks(hf, f"{prefix}.encoder.layers", "transformer.resblocks", cfg.layers, sd)
+    if cfg.projection_dim:
+        sd["text_projection"] = torch.as_tensor(hf["text_projection.weight"]).t().contiguous()
     return sd
 
 

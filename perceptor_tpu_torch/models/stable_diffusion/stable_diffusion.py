@@ -32,6 +32,14 @@ widths; stored in bf16 for matmuls and convolutions when `fp16`.
 checkpoint's UNet keys map onto `UNet` through
 `models/stable_diffusion/convert.py compvis_to_diffusers_unet`.
 
+Stable Diffusion XL base 1.0 ("stabilityai/stable-diffusion-xl-base-1.0",
+"tiny-xl" for tests) runs on the same entry points: `conditioning` encodes
+with both towers and gives a `Conditioning` that carries the pooled
+embedding and the size ids besides the states; with no negative prompts
+the unconditional half is zeros (the pipeline's
+`force_zeros_for_empty_prompt`). DeepCache, inpainting, meshes and the
+exported programs are not extended to it and raise.
+
 `export_sample` and `export_conditioning` trace the sampler and the text
 encoder into `torch.export` programs (utils/serving.py); `prime` warms the
 eager sampler. `sample(mesh=, rules=)` and `sample_loop(mesh=, rules=)`
@@ -85,16 +93,30 @@ METHODS = ("ddim", "dpm++")
 class Conditioning:
     """Text-encoder states plus, for the inpainting UNet, the blurred
     latent mask (N|1, 1, h, w) and the masked image's latents (N|1, 4, h, w)
-    that extend its input to 9 channels."""
+    that extend its input to 9 channels, or, for SDXL, the pooled text
+    embedding (N, P) and the size ids (N, 6) of its added embedding."""
 
     model_name: str
     encodings: torch.Tensor
     inpainting_latent_masks: Optional[torch.Tensor] = None
     inpainting_latents: Optional[torch.Tensor] = None
+    pooled: Optional[torch.Tensor] = None
+    size_ids: Optional[torch.Tensor] = None
 
     def __neg__(self) -> "Conditioning":
         """Negated encodings; the mask and latents stay."""
         return dataclasses.replace(self, encodings=-self.encodings)
+
+    def zeros(self) -> "Conditioning":
+        """Zero states and pooled embedding, the same size ids: SDXL's
+        unconditional half with no negative prompt."""
+        return dataclasses.replace(self, encodings=torch.zeros_like(self.encodings),
+                                   pooled=torch.zeros_like(self.pooled))
+
+    @property
+    def added(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The UNet's `added` argument, or None."""
+        return None if self.pooled is None else (self.pooled, self.size_ids)
 
     def input(self, diffused_latents: torch.Tensor) -> torch.Tensor:
         """The UNet input: the latents alone, or [latents, the mask binarized
@@ -135,7 +157,7 @@ class StableDiffusion:
         seed: int = 0,
         remat: bool = False,
     ):
-        """`name` is "tiny", "tiny-inpainting" or a key of
+        """`name` is "tiny", "tiny-inpainting", "tiny-xl" or a key of
         `config.MODEL_CONFIGS`; `fp16` stores matmul/conv weights in bf16
         (bf16 compute); weights come from the checkpoint that
         `find_checkpoint("stable_diffusion_<name with / as _>", name)` finds
@@ -147,13 +169,17 @@ class StableDiffusion:
         if name in ("tiny", "tiny-inpainting"):
             unet = sd_config.TINY_UNET if name == "tiny" else sd_config.TINY_INPAINT_UNET
             configs = (unet, sd_config.TINY_VAE, sd_config.TINY_TEXT)
+        elif name == "tiny-xl":
+            configs = (sd_config.TINY_XL_UNET, sd_config.TINY_XL_VAE, sd_config.TINY_XL_TEXT,
+                       sd_config.TINY_XL_TEXT_2)
         elif name in sd_config.MODEL_CONFIGS:
             configs = sd_config.MODEL_CONFIGS[name]
         else:
             raise ValueError(f"unknown stable diffusion name: {name}")
         self.name = name
         self.device = resolve_device(device)
-        self.unet_config, self.vae_config, self.text_config = configs
+        self.unet_config, self.vae_config, self.text_config = configs[:3]
+        self.text_config_2 = configs[3] if len(configs) > 3 else None
         self.unet_config = dataclasses.replace(self.unet_config, remat=remat)
         dtype = COMPUTE_DTYPE if fp16 else torch.float32
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -162,6 +188,10 @@ class StableDiffusion:
         self.text_encoder = random_module(
             CLIPTextEncoder, self.text_config, self.device, gen, dtype
         )
+        if self.xl:
+            self.text_encoder_2 = random_module(
+                CLIPTextEncoder, self.text_config_2, self.device, gen, dtype
+            )
         self._tokenizer = tokenizer
         self._sample_calls = itertools.count()
         alphas, sigmas = scaled_linear_alphas_sigmas()
@@ -171,9 +201,20 @@ class StableDiffusion:
         if path is not None:
             load_found(path, self.serving_modules(), self._from_jax, self._load_upstream)
 
+    @property
+    def xl(self) -> bool:
+        """SDXL: two text towers and the added embedding."""
+        return self.text_config_2 is not None
+
+    def _refuse_xl(self, what: str) -> None:
+        if self.xl:
+            raise ValueError(f"{what} is not extended to {self.name}: it would run without "
+                             "SDXL's second text tower and added conditioning")
+
     def _from_jax(self, params) -> Dict[str, Dict[str, torch.Tensor]]:
         from perceptor_tpu_torch.convert import stable_diffusion_state_dicts_from_jax
 
+        self._refuse_xl("loading the JAX package's params")
         return stable_diffusion_state_dicts_from_jax(
             params, self.unet_config, self.vae_config, self.text_config)
 
@@ -181,7 +222,9 @@ class StableDiffusion:
         """A CompVis checkpoint (`model.diffusion_model.*`,
         `first_stage_model.*`, `cond_stage_model.transformer.*`) or a
         diffusers pipeline's (`unet.*`, `vae.*`, `text_encoder.*`, the text
-        encoder in HF names)."""
+        encoder in HF names; SDXL's also `text_encoder_2.*`, an HF
+        `CLIPTextModelWithProjection`). SDXL's single-file layout
+        (`conditioner.embedders.*`) is not read."""
         from perceptor_tpu_torch.convert import text_encoder_state_dict_from_hf
         from perceptor_tpu_torch.models.latent_diffusion.first_stage import (
             convert_compvis_autoencoder,
@@ -191,6 +234,7 @@ class StableDiffusion:
             return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
 
         if any(k.startswith("model.diffusion_model.") for k in state_dict):
+            self._refuse_xl("a CompVis / single-file checkpoint")
             states = {
                 "unet": compvis_to_diffusers_unet(state_dict, self.unet_config),
                 "vae": convert_compvis_autoencoder(state_dict, self.vae_config),
@@ -201,20 +245,30 @@ class StableDiffusion:
             states = {"unet": sub("unet."), "vae": sub("vae."),
                       "text_encoder": text_encoder_state_dict_from_hf(
                           sub("text_encoder."), self.text_config)}
+            if self.xl:
+                states["text_encoder_2"] = text_encoder_state_dict_from_hf(
+                    sub("text_encoder_2."), self.text_config_2)
         self.load_state_dicts(states)
 
     _PARTS = ("unet", "vae", "text_encoder")
 
     @property
+    def parts(self) -> Tuple[str, ...]:
+        """The modules' names: SDXL adds "text_encoder_2"."""
+        return self._PARTS + (("text_encoder_2",) if self.xl else ())
+
+    @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """{"unet", "vae", "text_encoder"}: each module's parameters and
-        buffers by name, the weights argument of the exported programs."""
-        return {part: serving.module_params(getattr(self, part)) for part in self._PARTS}
+        """{"unet", "vae", "text_encoder"} (and SDXL's "text_encoder_2"):
+        each module's parameters and buffers by name, the weights argument
+        of the exported programs."""
+        return {part: serving.module_params(getattr(self, part)) for part in self.parts}
 
     def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
-        """Load {"unet", "vae", "text_encoder"} state_dicts (each module
-        keeps its own storage dtypes)."""
-        for key in ("unet", "vae", "text_encoder"):
+        """Load {"unet", "vae", "text_encoder"} (and SDXL's
+        "text_encoder_2") state_dicts (each module keeps its own storage
+        dtypes)."""
+        for key in self.parts:
             getattr(self, key).load_state_dict(state_dicts[key])
 
     @property
@@ -249,8 +303,11 @@ class StableDiffusion:
 
     def _unet(self, latents, ts, conditioning, **kwargs) -> torch.Tensor:
         """The UNet under text encodings or a `Conditioning` (whose input
-        assembly gives the inpainting UNet its 9 channels)."""
+        assembly gives the inpainting UNet its 9 channels, and whose
+        pooled embedding and size ids SDXL's UNet adds)."""
         if isinstance(conditioning, Conditioning):
+            if conditioning.pooled is not None:
+                kwargs = dict(kwargs, added=conditioning.added)
             return self.unet(conditioning.input(latents), ts, conditioning.encodings, **kwargs)
         return self.unet(latents, ts, conditioning, **kwargs)
 
@@ -339,13 +396,22 @@ class StableDiffusion:
 
     @torch.no_grad()
     def conditioning(self, texts: Sequence[str], inpainting_masks=None, inpainting_images=None,
-                     mask_blur: float = 4.0):
+                     mask_blur: float = 4.0, size: Optional[Tuple[int, int]] = None):
         """texts -> (N, 77, width) fp32 text-encoder states; for the
         inpainting checkpoint a `Conditioning` with them, the latent masks
         of `inpainting_masks` and the posterior mode of the masked images
         (pixels where the unblurred mask exceeds 0.5 set to 0.5). Span
-        `text_encode`, `rows` the prompt count."""
+        `text_encode`, `rows` the prompt count.
+
+        SDXL: a `Conditioning` of both towers' penultimate states joined on
+        the width, the second tower's pooled projection and the size ids
+        (H, W, 0, 0, H, W) of the image `size` (default 1024 x 1024); one
+        `text_encode` span a tower, `tower` its index."""
         texts = list(texts)
+        if self.xl:
+            if inpainting_masks is not None:
+                self._refuse_xl("inpainting")
+            return self._xl_conditioning(texts, size)
         with profiling.annotate("text_encode", rows=len(texts)):
             tokens = tokenize(texts, self.text_config.context_length, tokenizer=self.tokenizer)
             encodings = self.text_encoder(torch.from_numpy(tokens).to(self.device))
@@ -359,6 +425,20 @@ class StableDiffusion:
         latent_masks = self.latent_masks(masks, mask_blur)
         masked = images * (masks <= 0.5) + 0.5 * (masks > 0.5)
         return Conditioning(self.name, encodings, latent_masks, self.encode(masked))
+
+    def _xl_conditioning(self, texts, size) -> Conditioning:
+        height, width = size or (sd_config.SDXL_SIZE, sd_config.SDXL_SIZE)
+        with profiling.annotate("text_encode", rows=len(texts), tower=0):
+            # both towers share the tokenizer and its padding
+            tokens = tokenize(texts, self.text_config.context_length, tokenizer=self.tokenizer)
+            tokens = torch.from_numpy(tokens).to(self.device)
+            states, _ = self.text_encoder.encode(tokens)
+        with profiling.annotate("text_encode", rows=len(texts), tower=1):
+            states_2, pooled = self.text_encoder_2.encode(tokens)
+        size_ids = torch.tensor([height, width, 0, 0, height, width], dtype=torch.float32,
+                                device=self.device).expand(len(texts), 6)
+        return Conditioning(self.name, torch.cat([states, states_2], dim=-1), pooled=pooled,
+                            size_ids=size_ids)
 
     def diffuse_latents(self, latents, indices, generator: torch.Generator) -> torch.Tensor:
         """q-sample: alpha * x0 + sigma * noise."""
@@ -443,6 +523,7 @@ class StableDiffusion:
         `rows` the prompt count; inside it `text_encode`, one `sampler_step`
         a schedule pair and `vae_decode`."""
         self._check_method(method, eta, n_resample, cache_interval)
+        self._check_xl(cache_interval, mesh, inpainting_masks)
         texts = list(texts)
         with profiling.annotate("sample", call=next(self._sample_calls), rows=len(texts)):
             generator, uncond, cond, pairs, latents, init_latents = self._setup(
@@ -478,9 +559,14 @@ class StableDiffusion:
         texts = list(texts)
         inpaint = dict(inpainting_masks=inpainting_masks, inpainting_images=init_images,
                        mask_blur=mask_blur)
-        uncond = self.conditioning(
-            list(negative_texts) if negative_texts else [""] * len(texts), **inpaint)
-        cond = self.conditioning(texts, **inpaint)
+        if self.xl:  # no negative prompts: zeros, not the empty prompt's encodings
+            cond = self.conditioning(texts, size=size, **inpaint)
+            uncond = (self.conditioning(list(negative_texts), size=size, **inpaint)
+                      if negative_texts else cond.zeros())
+        else:
+            uncond = self.conditioning(
+                list(negative_texts) if negative_texts else [""] * len(texts), **inpaint)
+            cond = self.conditioning(texts, **inpaint)
         pairs = self.schedule_indices(n_steps, from_index=from_index, to_index=to_index)
         if init_images is None:
             if from_index != 999:
@@ -501,6 +587,15 @@ class StableDiffusion:
             raise ValueError("dpm++ is deterministic: eta/n_resample do not apply")
         if cache_interval > 1 and n_resample > 0:
             raise ValueError("cache_interval and n_resample are incompatible")
+
+    def _check_xl(self, cache_interval: int = 1, mesh=None, inpainting_masks=None) -> None:
+        """The sampler's options that SDXL does not have."""
+        if cache_interval > 1:
+            self._refuse_xl("DeepCache (cache_interval > 1)")
+        if mesh is not None:
+            self._refuse_xl("sampling on a mesh")
+        if inpainting_masks is not None:
+            self._refuse_xl("inpainting")
 
     def cfg_predictions(self, latents, from_idx, context2, guidance_scale, cache=None,
                         return_cache=False):
@@ -551,6 +646,7 @@ class StableDiffusion:
         `replace_diffused` re-injects them outside the mask after each
         step. `mesh` / `rules` as in `sample`. Returns the final latents."""
         self._check_method(method, eta, n_resample, cache_interval)
+        self._check_xl(cache_interval, mesh)
         if mesh is not None:
             from perceptor_tpu_torch.parallel.partition import sampling
 
@@ -578,6 +674,10 @@ class StableDiffusion:
         masks = getattr(cond, "inpainting_latent_masks", None)
         if masks is not None:  # the cond's mask and masked latents serve both halves
             context2 = dataclasses.replace(cond, encodings=context2)
+        if getattr(cond, "pooled", None) is not None:  # SDXL's added conditioning, both halves
+            context2 = dataclasses.replace(
+                cond, encodings=context2, pooled=torch.cat([uncond.pooled, cond.pooled]),
+                size_ids=torch.cat([uncond.size_ids, cond.size_ids]))
         replace = replace_diffused and masks is not None and init_latents is not None
         pairs = torch.as_tensor(np.asarray(pairs), device=self.device).long()
         prev_x0, prev_h = torch.zeros_like(latents), torch.ones((n, 1, 1, 1), device=self.device)
@@ -672,6 +772,7 @@ class StableDiffusion:
         the JAX package. The step loop is unrolled into the graph, so the
         artifact grows with `n_steps`. Load it with
         `utils.serving.load_program`."""
+        self._refuse_xl("export_sample")
         self._check_size(size)
         self._check_method(method, eta, n_resample, cache_interval)
         pairs = self.schedule_indices(n_steps, from_index=from_index, to_index=to_index)
@@ -708,6 +809,8 @@ class StableDiffusion:
         states` for 2 batch prompts (the uncond and cond stack that
         `export_sample` takes), serialized like it. Tokenize on the host
         with `models.clip.tokenizer.tokenize`."""
+        self._refuse_xl("export_conditioning")
+
         def serve(params, tokens):
             return serving.functional(self.serving_modules(), params, self.text_encoder, tokens)
 
@@ -717,7 +820,7 @@ class StableDiffusion:
 
     def serving_modules(self) -> Dict[str, torch.nn.Module]:
         """The modules whose tensors `params` lists, by the same names."""
-        return {part: getattr(self, part) for part in self._PARTS}
+        return {part: getattr(self, part) for part in self.parts}
 
     @torch.no_grad()
     def sample_iter(

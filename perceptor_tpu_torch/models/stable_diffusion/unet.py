@@ -152,27 +152,40 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(Remat):
-    """GN -> 1x1 proj_in -> transformer blocks over HW tokens -> 1x1
-    proj_out + residual."""
+    """GN -> proj_in -> transformer blocks over HW tokens -> proj_out +
+    residual. The projections are 1x1 convolutions (SD-1.x) or, with
+    `linear`, linears over the tokens (SDXL's `use_linear_projection`).
+    Span `spatial_transformer`, `rows` the batch, `depth` the blocks and
+    `tokens` H x W."""
 
-    def __init__(self, channels: int, heads: int, dim_head: int, depth: int, context_dim: int):
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int, context_dim: int,
+                 linear: bool = False):
         super().__init__()
+        self.linear = linear
+        proj = Linear if linear else (lambda c_in, c_out: Conv2d(c_in, c_out, 1))
         self.norm = GroupNorm(channels, eps=1e-6)
-        self.proj_in = Conv2d(channels, channels, 1)
+        self.proj_in = proj(channels, channels)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, heads, dim_head, context_dim) for _ in range(depth)]
         )
-        self.proj_out = Conv2d(channels, channels, 1)
+        self.proj_out = proj(channels, channels)
 
     def forward(self, x, context):
         b, c, h, w = x.shape
-        residual = x
-        x = self.proj_in(self.norm(x))
-        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        for block in self.transformer_blocks:
-            x = block(x, context)
-        x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(x) + residual
+        with profiling.annotate("spatial_transformer", rows=b,
+                                depth=len(self.transformer_blocks), tokens=h * w):
+            residual, x = x, self.norm(x)
+            if self.linear:
+                x = x.to(self.proj_in.weight.dtype).permute(0, 2, 3, 1).reshape(b, h * w, c)
+                x = self.proj_in(x)
+            else:
+                x = self.proj_in(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+            for block in self.transformer_blocks:
+                x = block(x, context)
+            if self.linear:
+                # the residual leads the add, so the output keeps its NCHW layout
+                return residual + self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2)
+            return self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2)) + residual
 
 
 class Downsample(nn.Module):
@@ -209,7 +222,10 @@ class UNet(nn.Module):
     """UNet2DConditionModel-compatible denoiser.
 
     forward(latents NCHW, timesteps (N,) or scalar, context (N, S, context_dim))
-    -> predicted noise, NCHW fp32.
+    -> predicted noise, NCHW fp32. A config with `added_time_dim` (SDXL's
+    `text_time`) also takes `added=(pooled (N, P), size ids (N, 6))`: each
+    id a sinusoid, joined to the pooled text embedding, through
+    `add_embedding` and added to the timestep embedding.
     """
 
     def __init__(self, config: UNetConfig):
@@ -219,12 +235,15 @@ class UNet(nn.Module):
         time_dim = channels[0] * 4
         n_levels = len(channels)
 
-        def transformer(ch):
+        def transformer(ch, level):
+            heads = cfg.heads(ch)
             return SpatialTransformer(
-                ch, cfg.n_heads, ch // cfg.n_heads, cfg.transformer_depth, cfg.context_dim
+                ch, heads, ch // heads, cfg.depth(level), cfg.context_dim, cfg.linear_projection
             )
 
         self.time_embedding = TimestepEmbedding(channels[0], time_dim)
+        if cfg.added_time_dim:
+            self.add_embedding = TimestepEmbedding(cfg.added_input_dim, time_dim)
         self.conv_in = Conv3x3(cfg.in_channels, channels[0])
 
         skip_channels: List[int] = [channels[0]]
@@ -236,7 +255,7 @@ class UNet(nn.Module):
                 resnets.append(ResnetBlock(ch_in, ch, time_dim))
                 ch_in = ch
                 if cfg.cross_attention[i]:
-                    attentions.append(transformer(ch))
+                    attentions.append(transformer(ch, i))
                 skip_channels.append(ch)
             resampler = Downsample(ch) if i < n_levels - 1 else None
             if resampler is not None:
@@ -249,7 +268,7 @@ class UNet(nn.Module):
         self.mid_block.resnets = nn.ModuleList(
             [ResnetBlock(mid_ch, mid_ch, time_dim), ResnetBlock(mid_ch, mid_ch, time_dim)]
         )
-        self.mid_block.attentions = nn.ModuleList([transformer(mid_ch)])
+        self.mid_block.attentions = nn.ModuleList([transformer(mid_ch, n_levels - 1)])
 
         up = []
         for i in range(n_levels):
@@ -260,7 +279,7 @@ class UNet(nn.Module):
                 resnets.append(ResnetBlock(ch_in + skip_channels.pop(), ch, time_dim))
                 ch_in = ch
                 if cfg.cross_attention[level]:
-                    attentions.append(transformer(ch))
+                    attentions.append(transformer(ch, level))
             resampler = Upsample(ch) if level > 0 else None
             up.append(_Level(resnets, attentions, resampler, "upsamplers"))
         self.up_blocks = nn.ModuleList(up)
@@ -269,7 +288,7 @@ class UNet(nn.Module):
         self.conv_out = Conv3x3(channels[0], cfg.out_channels)
         set_remat(self, cfg.remat)
 
-    def forward(self, latents, timesteps, context, cache=None, return_cache=False):
+    def forward(self, latents, timesteps, context, cache=None, return_cache=False, added=None):
         """Denoise. DeepCache: `return_cache=True` also returns the deep
         feature that enters the last (shallowest) up level, `(out, cache)`;
         `cache=<that feature>` skips down levels 1.., the mid block and up
@@ -277,15 +296,27 @@ class UNet(nn.Module):
         up level on the cache and the head. The full path is unchanged. Span
         `unet`, `rows` the batch."""
         with profiling.annotate("unet", rows=latents.shape[0]):
-            return self._forward(latents, timesteps, context, cache, return_cache)
+            return self._forward(latents, timesteps, context, cache, return_cache, added)
 
-    def _forward(self, latents, timesteps, context, cache, return_cache):
+    def _added_embedding(self, added, n: int) -> torch.Tensor:
+        """`add_embedding` of the pooled text embeddings and the size ids."""
+        if added is None:
+            raise ValueError("this UNet's text_time embedding needs "
+                             "added=(pooled text embeddings, size ids)")
+        pooled, size_ids = added
+        dim = self.config.added_time_dim
+        ids = timestep_embedding(size_ids.reshape(-1), dim)
+        return self.add_embedding(torch.cat([pooled.float(), ids.reshape(n, -1)], dim=-1))
+
+    def _forward(self, latents, timesteps, context, cache, return_cache, added):
         if not torch.is_tensor(timesteps):
             timesteps = torch.tensor(timesteps, device=latents.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(latents.shape[0])
         emb = timestep_embedding(timesteps, self.config.block_channels[0])
         emb = self.time_embedding(emb)
+        if self.config.added_time_dim:
+            emb = emb + self._added_embedding(added, latents.shape[0])
         dtype = self.conv_in.weight.dtype
         context = context.to(dtype)
 

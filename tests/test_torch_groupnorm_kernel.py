@@ -26,12 +26,15 @@ TWO_WAVES = gn.WAVES * gn.SMS * gn.THREADS_PER_SM
 
 # (batch, groups, channels per group, H * W): N x G from 1 to 512 over the
 # slabs the port meets (the SD UNet's and VAE's levels, v-diffusion's one
-# group), odd H * W included
+# group, SDXL's UNet at batch 8 and its decoder of 4 at 1024 px), odd H * W
+# included
 SPLIT_CASES = [
     (1, 1, 128, 65536), (1, 1, 512, 1024), (1, 32, 4, 262144), (1, 32, 8, 65536),
     (1, 32, 10, 4096), (1, 32, 40, 64), (1, 32, 80, 64), (2, 32, 20, 1024), (8, 32, 4, 262144),
     (8, 32, 16, 16384), (16, 32, 10, 4096), (16, 32, 40, 256), (16, 32, 40, 64), (4, 32, 2, 35),
     (2, 1, 64, 49), (1, 2, 3, 7), (16, 8, 4, 8), (1, 32, 16, 16384), (8, 32, 8, 65536),
+    (8, 32, 10, 16384), (8, 32, 30, 16384), (8, 32, 80, 1024), (4, 32, 16, 262144),
+    (4, 32, 8, 262144), (4, 32, 8, 1048576), (4, 32, 4, 1048576),
 ]
 
 
