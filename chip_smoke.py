@@ -489,6 +489,14 @@ PER_STEP = {
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+# the forward's launches by design (`fa.FWD_DESIGN_LAUNCHES`): per UNet
+# evaluation, every self-attention (d = 40 / 80, SDXL's d = 64) on the
+# Hopper design; per decode, the mid block's d = 512 on mma.sync
+FWD_DESIGNS_PER_UNET_EVAL = {
+    "sample": {"wgmma": 10, "mma": 0, "fp32": 0},
+    "sdxl_sample": {"wgmma": 70, "mma": 0, "fp32": 0},
+}
+FWD_DESIGNS_PER_VAE_CALL = {"wgmma": 0, "mma": 1, "fp32": 0}
 # the B = 1 sites' launches per CFG-guided step: the UNet's sites twice
 CFG_GUIDED_SITE_LAUNCHES = {
     site: n * (2 if site.startswith("unet") else 1) for site, *_, n in SITES
@@ -744,12 +752,16 @@ GN_PER_GUIDED_STEP = GN_PER_UNET_EVAL + GN_PER_DECODE
 # SDXL's UNet: 17 res blocks x 2 and conv_norm_out; its decoder is SD's
 GN_PER_SDXL_UNET_EVAL = 35
 LSE_ATOL = 1e-3
+# the Hopper forward's lse: fp32 statistics of one ex2.approx a score and
+# one logf a row, a few fp32 ulps of values up to ~20 (2e-6 measured on an
+# H100 at every site)
+WGMMA_LSE_ATOL = 1e-5
 # Off the main path: fp32 inputs (the kernels' scalar path: the plain
 # version's fp32 arithmetic up to summation order, so 1e-4; d = 64 too) and
 # bf16 inputs (KERNEL_RTOL), all viewed from (B, S, H * D) projections as the
 # SD UNet passes them: batch 2 at S = 1024 (d = 40, 80 and ADM's 64) and at
 # 768px's S = 2304, the VAE's d = 512 at S = 1024, and Sk of a single K/V
-# tile of the three bf16 kernels (64 keys at d = 40, 32 at d = 512).
+# tile of the bf16 forward (128 keys at d = 40, 32 at d = 512).
 # (dtype, batch, heads, seq_q, seq_k, head_dim)
 FP32_RTOL = 1e-4
 EXTRA_CASES = (
@@ -759,7 +771,7 @@ EXTRA_CASES = (
     ("bfloat16", 2, 2, 2304, 2304, 40), ("bfloat16", 2, 2, 2304, 2304, 80),
     ("bfloat16", 2, 2, 1024, 1024, 64),
     ("bfloat16", 1, 1, 1024, 1024, 512),
-    ("bfloat16", 1, 2, 256, 64, 40), ("bfloat16", 1, 1, 128, 32, 512),
+    ("bfloat16", 1, 2, 256, 128, 40), ("bfloat16", 1, 1, 128, 32, 512),
 )
 # kernel route vs plain route through the whole bf16 model, relative L2
 # error. Both routes are bf16 approximations: the plain route rounds the
@@ -772,10 +784,12 @@ ROUTE_FWD_RTOL = 5e-2
 ROUTE_GRAD_RTOL = 1e-1
 ROUTE_MARGIN = 1.25
 SOURCES = {
+    # d = 512; every head_dim up to 128 runs FWD_WGMMA_SOURCE's forward
     "flash_fwd": "perceptor_tpu_torch/csrc/flash_mma.cu",
     "flash_dq": "perceptor_tpu_torch/csrc/flash_mma.cu",
     "flash_dkv": "perceptor_tpu_torch/csrc/flash_mma.cu",
 }
+FWD_WGMMA_SOURCE = "perceptor_tpu_torch/csrc/flash_wgmma.cu"
 REPLACES = {
     "flash_fwd": "perceptor_tpu/ops/flash_attention_kernel.py:45",
     "flash_dq": "perceptor_tpu/ops/flash_attention_kernel.py:126",
@@ -899,8 +913,10 @@ SDXL_SITE_INPUTS = (projection_site_inputs, projection_site_inputs, site_inputs)
 
 
 def phase_kernels(fa) -> dict:
-    """Each kernel against its plain version at the main paths' shapes; at
-    SDXL_SITES, whose path runs no backward, the forward alone."""
+    """Each kernel against its plain version at the main paths' shapes, the
+    backward both on the plain forward's lse and on the forward kernel's; at
+    SDXL_SITES, whose path runs no backward, the forward, and at its UNet
+    sites the backward on the forward kernel's lse."""
     import torch
 
     errors = {name: 0.0 for name in REPLACES}
@@ -940,10 +956,15 @@ def phase_kernels(fa) -> dict:
                 raise AssertionError(f"{kernel} {out_name} at {site}: max |err| {err} > {tol}")
             errors[kernel] = max(errors[kernel], err)
             record[out_name] = {"max_abs_err": err, "tol": tol}
+        design = forward_design(fa, q)
+        lse_tol = WGMMA_LSE_ATOL if design == "wgmma" else LSE_ATOL
         lse_err = float((lse - lse_ref).abs().max())
-        if not lse_err <= LSE_ATOL:
-            raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {LSE_ATOL}")
-        record["lse"] = {"max_abs_err": lse_err, "tol": LSE_ATOL}
+        if not lse_err <= lse_tol:
+            raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {lse_tol}")
+        record["lse"] = {"max_abs_err": lse_err, "tol": lse_tol}
+        record["fwd_design"] = design
+        record["backward_on_fwd_lse"] = check_backward_on_forward(
+            fa, site, (q, k, v, do), (o, lse), (dq_ref, dk_ref, dv_ref))
         record["dq_bitwise_repeatable"] = True
         record["dkv_bitwise_repeatable"] = True
         sites.append(record)
@@ -956,7 +977,9 @@ def phase_kernels(fa) -> dict:
             cfg_sites.append({"site": site, **record})
     sdxl_sites = []
     for i, ((site, b, h, s, d, _), make_inputs) in enumerate(zip(SDXL_SITES, SDXL_SITE_INPUTS)):
-        record = check_forward(fa, site, make_inputs(b, h, s, d, seed=120 + i))
+        # the UNet's sites: the backward too, on the forward's lse
+        record = check_forward(fa, site, make_inputs(b, h, s, d, seed=120 + i),
+                               backward=site.startswith("sdxl_unet"))
         errors["flash_fwd"] = max(errors["flash_fwd"], record["o"]["max_abs_err"])
         sdxl_sites.append(record)
     extra = []
@@ -967,14 +990,20 @@ def phase_kernels(fa) -> dict:
     return errors
 
 
-def check_forward(fa, site, inputs) -> dict:
+def forward_design(fa, q) -> str:
+    """The design ("wgmma" or "mma") the bf16 forward takes at q's head_dim."""
+    return fa.fwd_design(fa._kernel_blocks(q.shape[-1], "fwd", q.dtype), q.dtype)
+
+
+def check_forward(fa, site, inputs, backward=False) -> dict:
     """The forward kernel against its plain version on one site's bf16 q, k
     and v (a path that runs no backward): o within KERNEL_RTOL of the plain
-    fp32 result's largest magnitude, lse within LSE_ATOL; raises above
-    them."""
+    fp32 result's largest magnitude, lse within LSE_ATOL (WGMMA_LSE_ATOL on
+    the Hopper forward); raises above them. With `backward`, also
+    `check_backward_on_forward`."""
     import torch
 
-    q, k, v, _ = inputs
+    q, k, v, do = inputs
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_forward(q, k, v, scale)
@@ -983,11 +1012,45 @@ def check_forward(fa, site, inputs) -> dict:
     err, tol = float((o.float() - o_ref).abs().max()), KERNEL_RTOL * float(o_ref.abs().max())
     if not err <= tol:
         raise AssertionError(f"flash_fwd o at {site}: max |err| {err} > {tol}")
+    design = forward_design(fa, q)
+    lse_tol = WGMMA_LSE_ATOL if design == "wgmma" else LSE_ATOL
     lse_err = float((lse - lse_ref).abs().max())
-    if not lse_err <= LSE_ATOL:
-        raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {LSE_ATOL}")
-    return {"site": site, "shape": list(q.shape), "q_strides": list(q.stride()),
-            "o": {"max_abs_err": err, "tol": tol}, "lse": {"max_abs_err": lse_err, "tol": LSE_ATOL}}
+    if not lse_err <= lse_tol:
+        raise AssertionError(f"flash_fwd lse at {site}: max |err| {lse_err} > {lse_tol}")
+    record = {"site": site, "shape": list(q.shape), "q_strides": list(q.stride()),
+              "fwd_design": design, "o": {"max_abs_err": err, "tol": tol},
+              "lse": {"max_abs_err": lse_err, "tol": lse_tol}}
+    if backward:
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        delta = (o_ref.to(q.dtype).float() * dof).sum(-1)
+        refs = (fa.flash_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale),
+                *fa.flash_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale))
+        record["backward_on_fwd_lse"] = check_backward_on_forward(
+            fa, site, inputs, (o, lse), refs)
+    return record
+
+
+def check_backward_on_forward(fa, site, inputs, forward, refs) -> dict:
+    """dq and dk/dv from the forward kernel's o and lse, as autograd hands
+    them over, against the plain fp32 gradients `refs` (from the plain
+    forward's lse): each within KERNEL_RTOL of the reference's largest
+    magnitude; raises above it."""
+    import torch
+
+    q, k, v, do = inputs
+    o, lse = forward
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = (o.float() * do.float()).sum(-1)
+    outs = (fa.flash_dq(q, k, v, do, lse, delta, scale),
+            *fa.flash_dkv(q, k, v, do, lse, delta, scale))
+    torch.cuda.synchronize()
+    record = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), outs, refs):
+        err, tol = float((got.float() - ref).abs().max()), KERNEL_RTOL * float(ref.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{name} on the forward's lse at {site}: max |err| {err} > {tol}")
+        record[name] = {"max_abs_err": err, "tol": tol}
+    return record
 
 
 OUT_KERNEL = {"o": "flash_fwd", "dq": "flash_dq", "dk": "flash_dkv", "dv": "flash_dkv"}
@@ -1036,14 +1099,19 @@ def phase_kernel_info(fa, library) -> None:
     info = [
         {"kernel": name, "site": site, "head_dim": d,
          **fa.kernel_info(name.removeprefix("flash_"), d, torch.bfloat16)}
-        for site, _, _, _, d, _ in SITES + ADM_SITES + LDM_SITES for name in REPLACES
+        for site, _, _, _, d, _ in SITES + ADM_SITES + LDM_SITES + SDXL_SITES
+        for name in REPLACES
     ]
+    for record in info:
+        if record["kernel"] == "flash_fwd" and record["local_bytes"]:
+            raise AssertionError(f"flash_fwd at {record['site']}: {record['local_bytes']} "
+                                 "local (spill) bytes")
     ptxas = []
     report = library.with_suffix(".ptxas.txt")
     for mangled, body in re.findall(
         r"Function properties for (\S+)\n(.*?)(?=Compile time|\Z)", report.read_text(), re.S
     ):
-        kernel = re.search(r"((?:flash_)?(?:fwd|dq|dkv)_kernel)I", mangled)
+        kernel = re.search(r"((?:flash_)?(?:fwd_wgmma|fwd|dq|dkv)_kernel)I", mangled)
         numbers = lambda pattern: [int(x) for x in re.findall(pattern, body)]
         ptxas.append({
             "kernel": kernel.group(1) if kernel else mangled,
@@ -1550,6 +1618,7 @@ class PartTimer:
 
     def __init__(self, fa, obj, names):
         self.fa, self.obj, self.calls = fa, obj, {name: [] for name in names}
+        self.design_calls = {name: [] for name in names}  # the forward by design
         self.last = {}  # each name's last result
         for name in names:
             setattr(obj, name, self._wrap(name, getattr(obj, name)))
@@ -1560,11 +1629,14 @@ class PartTimer:
         def timed(*args, **kwargs):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             before = dict(self.fa.LAUNCHES)
+            designs = dict(self.fa.FWD_DESIGN_LAUNCHES)
             start.record()
             out = fn(*args, **kwargs)
             end.record()
             launched = {k: self.fa.LAUNCHES[k] - before[k] for k in before}
             self.calls[name].append((start, end, launched))
+            self.design_calls[name].append(
+                {k: self.fa.FWD_DESIGN_LAUNCHES[k] - designs[k] for k in designs})
             self.last[name] = out
             return out
 
@@ -1580,6 +1652,23 @@ class PartTimer:
     def launches(self, name) -> dict:
         """Launches of each kernel over every call of `name`."""
         return {k: sum(launched[k] for _, _, launched in self.calls[name]) for k in self.fa.LAUNCHES}
+
+    def designs(self, name) -> dict:
+        """The forward's launches by design over every call of `name`."""
+        return {k: sum(launched[k] for launched in self.design_calls[name])
+                for k in self.fa.FWD_DESIGN_LAUNCHES}
+
+
+def check_designs(path, timer, evals, decodes) -> dict:
+    """The forward's launches by design in `timer`'s sample loop and decode
+    against FWD_DESIGNS_PER_UNET_EVAL[path] and FWD_DESIGNS_PER_VAE_CALL;
+    raises on a difference. Returns them."""
+    designs = {"sample_loop": timer.designs("sample_loop"), "decode": timer.designs("decode")}
+    want = {"sample_loop": {k: n * evals for k, n in FWD_DESIGNS_PER_UNET_EVAL[path].items()},
+            "decode": {k: n * decodes for k, n in FWD_DESIGNS_PER_VAE_CALL.items()}}
+    if designs != want:
+        raise AssertionError(f"{path}: the forward's launches by design {designs}, want {want}")
+    return designs
 
 
 def phase_sample(fa, sd, gn):
@@ -1630,6 +1719,7 @@ def phase_sample(fa, sd, gn):
         # text encoding (masked, S = 77) launches none
         if any(parts["conditioning"].values()):
             raise AssertionError(f"sample {name}: the text encoder launched a flash kernel")
+        designs = check_designs("sample", timer, evals, vae_calls["decode"])
         if launches != {k: sum(p[k] for p in parts.values()) for k in launches}:
             raise AssertionError(f"sample {name}: launches {launches} outside {parts}")
         gn_calls = (GN_PER_UNET_EVAL * evals + GN_PER_DECODE * vae_calls["decode"]
@@ -1645,6 +1735,7 @@ def phase_sample(fa, sd, gn):
             "run": name, "options": {k: v for k, v in options.items() if k != "init_images"},
             "k": k, "unet_evals": evals, "launches": launches,
             "launches_per_unet_eval": measured, "group_norm_launches": gn_launches,
+            "fwd_designs": designs,
             "images_shape": list(images.shape), "image_mean": float(images.mean()),
             "image_std": float(images.std()), "s_per_image": wall,
             "ms_per_sampling_step": loop_ms / k, "ms_per_unet_eval": loop_ms / evals,
@@ -1703,6 +1794,7 @@ def phase_sdxl_sample(fa, gn):
         raise AssertionError(f"sdxl_sample: decode launched {parts['decode']}")
     if any(parts["conditioning"].values()):
         raise AssertionError("sdxl_sample: a text tower launched a flash kernel")
+    designs = check_designs("sdxl_sample", timer, k, 1)
     gn_calls = GN_PER_SDXL_UNET_EVAL * k + GN_PER_DECODE
     gn_want = {"gn_stats": gn_calls, "gn_apply": gn_calls, "gn_bwd_sums": 0, "gn_bwd_dx": 0}
     if gn_launches != gn_want:
@@ -1715,6 +1807,7 @@ def phase_sdxl_sample(fa, gn):
           "parameters": {part: sum(p.numel() for p in getattr(sd, part).parameters())
                          for part in sd.parts},
           "k": k, "launches": launches, "launches_per_unet_eval": measured,
+          "fwd_designs": designs,
           "group_norm_launches": gn_launches, "images_shape": list(images.shape),
           "image_mean": float(images.mean()), "image_std": float(images.std()),
           "s_per_call": wall, "ms_per_sampling_step": loop_ms / k,
@@ -4627,7 +4720,7 @@ def phase_checkpoint_discovery(fa):
 
 def phase_timings(fa, peak_flops, peak_bw) -> list:
     """Kernel, plain version, SDPA and the fused flash backward per site,
-    and the bound."""
+    and the bound; for the forward, the mma.sync design's ms beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -4669,22 +4762,27 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
                 "flops": flops, "bytes": nbytes,
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
                 "fused_bwd_ms": fused_bwd_ms,
+                **(forward_designs(fa, q, k, v, scale) if name == "flash_fwd" else {}),
             })
-    # the forward at the CFG sampling step's batch-2 sites
-    for i, (site, b, h, s, d, count) in enumerate(CFG_SITES):
-        q, k, v, _ = site_inputs(b, h, s, d, seed=120 + i)
+    # the forward at the CFG sampling step's batch-2 sites and at SDXL's
+    forward_sites = [(site, site_inputs, "sample", 120 + i) for i, site in enumerate(CFG_SITES)]
+    forward_sites += [(site, make_inputs, "sdxl_sample", 140 + i) for i, (site, make_inputs)
+                      in enumerate(zip(SDXL_SITES, SDXL_SITE_INPUTS))]
+    for (site, b, h, s, d, count), make_inputs, path, seed in forward_sites:
+        q, k, v, _ = make_inputs(b, h, s, d, seed=seed)
         scale = 1.0 / math.sqrt(d)
         flops, nbytes = site_work("flash_fwd", b, h, s, d)
         t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
         with torch.no_grad():
             sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         rows.append({
-            "kernel": "flash_fwd", "site": site, "path": "sample", "shape": [b, h, s, d],
+            "kernel": "flash_fwd", "site": site, "path": path, "shape": [b, h, s, d],
             "per_step": count, "ms": time_ms(lambda: fa.flash_forward(q, k, v, scale)),
             "plain_ms": time_ms(lambda: fa.flash_forward_plain(q, k, v, scale), reps=5),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes, "sdpa_fwd_ms": sdpa_fwd,
+            **forward_designs(fa, q, k, v, scale),
         })
 
     # per guided step: the port's two backward kernels against SDPA's
@@ -4709,6 +4807,16 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
     }
     emit({"phase": "timings", "ok": True, "rows": rows, "backward_per_step": backward})
     return rows
+
+
+def forward_designs(fa, q, k, v, scale) -> dict:
+    """The design the forward takes at this head_dim, and the ms a launch of
+    the mma.sync forward (`flash_mma.cu`) at the site, whichever design the
+    head_dim takes: the Hopper forward's yardstick."""
+    d = q.shape[-1]
+    blocks = next(blocks for max_d, blocks in fa.MMA_FWD_TILES if d <= max_d)
+    return {"design": forward_design(fa, q),
+            "mma_ms": time_ms(lambda: fa._launch_fwd(q, k, v, scale, blocks))}
 
 
 def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
@@ -4736,8 +4844,20 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
 
         t_ops = sum(r["flops"] * r["per_step"] for r in mine)
         t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
+        # the forward per step of the paths it leads, on each design: the
+        # guided step, a CFG sampling step, an SDXL UNet evaluation
+        forward = {}
+        if name == "flash_fwd":
+            sdxl_unet = [r for r in rows if r["kernel"] == name
+                         and r["site"].startswith("sdxl_unet")]
+            forward = {"ms_by_design_per_step": {
+                design: {"guided_step": weighted(key),
+                         "sample": sum(r[key] * r["per_step"] for r in sampling),
+                         "sdxl_sample": sum(r[key] * r["per_step"] for r in sdxl_unet)}
+                for design, key in (("new", "ms"), ("mma", "mma_ms"))}}
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
+            **({"wgmma_source": FWD_WGMMA_SOURCE} if name == "flash_fwd" else {}),
             "replaces": REPLACES[name],
             "launches": sum(path[name] for path in launches_by_path.values()),
             "max_abs_err": errors[name], "ms": weighted("ms"), "plain_ms": weighted("plain_ms"),
@@ -4746,7 +4866,7 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
             # one PyTorch call computes the forward alone (SDPA); none computes
             # dq or dk/dv alone (SDPA's backward returns all three)
             "library_ms": weighted("sdpa_fwd_ms") if name == "flash_fwd" else None,
-            "flops_per_step": t_ops, "bytes_per_step": t_bytes,
+            "flops_per_step": t_ops, "bytes_per_step": t_bytes, **forward,
             "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
             "launches_per_step": {path: counts[name] for path, counts in per_step_by_path.items()},
             "ms_per_step_by_path": {

@@ -1,6 +1,7 @@
 // Launch arguments shared by the flash-attention sources of this directory:
-// flash_attention.cu (the C interface and the fp32 kernels) and
-// flash_mma.cu (the bf16 forward, dq and dk/dv on mma.sync).
+// flash_attention.cu (the C interface and the fp32 kernels), flash_mma.cu
+// (the bf16 forward, dq and dk/dv on mma.sync) and flash_wgmma.cu (the bf16
+// forward on TMA and wgmma).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +49,11 @@ cudaError_t describe(Kernel kernel, int threads, size_t smem, int* info) {
 
 // bf16 forward, dq and dk/dv on the tensor cores (flash_mma.cu)
 cudaError_t fwd_bf16(const Args& a);
+// the (block_q, block_k) pair of the Hopper forward (flash_wgmma.cu): 128
+// query rows, two consumer warpgroups of 64, by 128-key K/V tiles;
+// fwd_bf16 hands a launch with this pair to fwd_wgmma_bf16
+constexpr int kWgmmaBlockQ = 128, kWgmmaBlockK = 128;
+cudaError_t fwd_wgmma_bf16(const Args& a);
 cudaError_t dq_bf16(const Args& a);
 cudaError_t dkv_bf16(const Args& a);
 

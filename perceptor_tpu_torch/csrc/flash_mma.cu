@@ -774,9 +774,12 @@ cudaError_t launch_dq(const Args& a) {
 
 // Tiles per padded head_dim; (block_q, block_k) must be the pair that
 // ops/flash_attention_kernel.py `_kernel_blocks` gives, or the launcher
-// returns cudaErrorInvalidValue.
+// returns cudaErrorInvalidValue. The forward's pair (kWgmmaBlockQ,
+// kWgmmaBlockK) selects flash_wgmma.cu's kernel, which every head_dim up to
+// 128 takes; the mma.sync forward runs d = 512, and at d <= 80 it is the
+// yardstick that chip_smoke.py times the Hopper forward against.
 //   forward: d <= 48: 8 warps x 16 Q rows, 64-key tiles        (128, 64)
-//            d <= 128: 4 warps x 16 Q rows, 64-key tiles       (64, 64)
+//            d <= 80: 4 warps x 16 Q rows, 64-key tiles        (64, 64)
 //            d <= 512: 2 x 4 warps, 32 Q rows, 32-key tiles    (32, 32)
 //   dk/dv:   d <= 80: 4 warps x 16 keys, 64-query tiles        (64, 64)
 //            d <= 128: 4 warps x 16 keys, 32-query tiles       (32, 64)
@@ -785,9 +788,9 @@ cudaError_t launch_dq(const Args& a) {
 //            d <= 128: 4 warps x 16 Q rows, 64-key tiles       (64, 64)
 //            d <= 512: 2 x 4 warps, 32 Q rows, 32-key tiles    (32, 32)
 cudaError_t fwd_bf16(const Args& a) {
+  if (a.block_q == kWgmmaBlockQ && a.block_k == kWgmmaBlockK) return fwd_wgmma_bf16(a);
   if (a.D <= 48) return launch_fwd<48, 8, 1, 64>(a);
   if (a.D <= 80) return launch_fwd<80, 4, 1, 64>(a);
-  if (a.D <= 128) return launch_fwd<128, 4, 1, 64>(a);
   if (a.D <= 512) return launch_fwd<512, 2, 4, 32>(a);
   return cudaErrorInvalidValue;
 }

@@ -9,11 +9,13 @@ Counterpart of perceptor_tpu/ops/flash_attention_kernel.py (Pallas TPU):
 
 Layout (batch, heads, seq, head_dim). The kernels live in `csrc/`:
 `flash_mma.cu` holds the three bf16 kernels (mma.sync with the scores,
-their gradients and the accumulators in registers), `flash_attention.cu`
-the C interface and the fp32 kernels. Every source there is compiled by
-nvcc for sm_90a into one library in `build/` at first use and loaded with
-ctypes; `ops/groupnorm.py` binds the GroupNorm kernels of the same library
-(`csrc/groupnorm.cu`).
+their gradients and the accumulators in registers), `flash_wgmma.cu` a
+second bf16 forward for Hopper (TMA loads, wgmma products, two consumer
+warpgroups whose softmax and products overlap) that `_TILES` picks by
+head_dim, `flash_attention.cu` the C interface and the fp32 kernels. Every
+source there is compiled by nvcc for sm_90a into one library in `build/` at
+first use and loaded with ctypes; `ops/groupnorm.py` binds the GroupNorm
+kernels of the same library (`csrc/groupnorm.cu`).
 
 Each kernel is an op of the `perceptor_tpu_torch` library
 (`torch.library.custom_op`: `perceptor_tpu_torch::flash_fwd`, `::flash_dq`,
@@ -57,11 +59,15 @@ MAX_HEAD_DIM = 512
 # kernel launches per wrapper, reset by callers that need to prove a path
 # went through the kernels
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# the forward's launches by design: bf16 on `flash_wgmma.cu` or on
+# `flash_mma.cu`, and the fp32 kernel; they sum to LAUNCHES["flash_fwd"]
+FWD_DESIGN_LAUNCHES = {"wgmma": 0, "mma": 0, "fp32": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FWD_DESIGN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # -- plain versions ----------------------------------------------------------
@@ -255,9 +261,17 @@ def _raise_on_error(name: str, err: int):
 
 # (block_q, block_k) of each kernel by dtype and head_dim: rows of (largest
 # head_dim, tiles). The wrappers pass the pair to the C entry points, whose
-# dispatch returns an error for a pair it has not instantiated.
+# dispatch returns an error for a pair it has not instantiated. The bf16
+# forward's pair WGMMA_FWD_BLOCKS selects the Hopper design (`flash_wgmma.cu`,
+# head_dim padded to 64 or 128), which every head_dim up to 128 takes: on an
+# H100 it ran in 0.38-0.66 of the mma.sync forward's time at every site of
+# the main paths (d = 32 and 40 padded to 64, 64, 80 padded to 128). The
+# mma.sync forward (`flash_mma.cu`, pairs MMA_FWD_TILES) keeps d = 512; its
+# rows up to d = 80 are the yardstick chip_smoke.py times against.
+WGMMA_FWD_BLOCKS = (128, 128)
+MMA_FWD_TILES = ((48, (128, 64)), (80, (64, 64)), (512, (32, 32)))
 _TILES = {
-    (torch.bfloat16, "fwd"): ((48, (128, 64)), (128, (64, 64)), (512, (32, 32))),
+    (torch.bfloat16, "fwd"): ((128, WGMMA_FWD_BLOCKS), MMA_FWD_TILES[-1]),
     (torch.bfloat16, "dq"): ((48, (128, 64)), (128, (64, 64)), (512, (32, 32))),
     (torch.bfloat16, "dkv"): ((80, (64, 64)), (128, (32, 64)), (512, (32, 32))),
     (torch.float32, "fwd"): ((128, (32, 32)), (512, (16, 32))),
@@ -284,6 +298,14 @@ def _check_blocks(sq: int, sk: int, d: int, kernel: str, dtype: torch.dtype):
             f"kernel's blocks ({bq}, {bk})"
         )
     return bq, bk
+
+
+def fwd_design(blocks, dtype: torch.dtype) -> str:
+    """The key of FWD_DESIGN_LAUNCHES that a forward launch with this
+    (block_q, block_k) pair and dtype counts under."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if tuple(blocks) == WGMMA_FWD_BLOCKS else "mma"
 
 
 _KERNEL_IDS = {"fwd": 0, "dq": 1, "dkv": 2}
@@ -331,17 +353,29 @@ def _flash_fwd_cuda(q, k, v, scale):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _check_cuda_inputs([("q", q), ("k", k), ("v", v)], [sq, sk, sk])
-    bq, bk = _check_blocks(sq, sk, d, "fwd", q.dtype)
+    return _launch_fwd(q, k, v, scale, _check_blocks(sq, sk, d, "fwd", q.dtype))
+
+
+def _launch_fwd(q, k, v, scale, blocks):
+    """(o, lse) from the forward kernel that the (block_q, block_k) pair
+    selects, on checked CUDA inputs; counts the launch."""
+    b, h, sq, d = q.shape
+    design = fwd_design(blocks, q.dtype)
+    if design == "wgmma":
+        # the tensor maps take no zero stride over more than one element
+        q, k, v = (t if all(st or n == 1 for st, n in zip(t.stride(), t.shape))
+                   else t.contiguous() for t in (q, k, v))
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _library().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, h, sq, sk, d, _strides(q, k, v), float(scale), q.dtype == torch.float32,
-            bq, bk, _cuda_stream(q),
+            b, h, sq, k.shape[2], d, _strides(q, k, v), float(scale), q.dtype == torch.float32,
+            *blocks, _cuda_stream(q),
         )
     _raise_on_error("flash_fwd", err)
     LAUNCHES["flash_fwd"] += 1
+    FWD_DESIGN_LAUNCHES[design] += 1
     return o, lse
 
 

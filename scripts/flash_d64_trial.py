@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time DP = 64 instantiations of the port's three bf16 flash kernels at the
-512px ADM UNet's site, (1, 8, 1024, 64), against what the port ships there.
+"""Time DP = 64 instantiations of the port's two bf16 flash backward kernels
+at the 512px ADM UNet's site, (1, 8, 1024, 64), against what the port ships
+there. (The forward at d = 64 runs unpadded on csrc/flash_wgmma.cu.)
 
     python3 scripts/flash_d64_trial.py
 
 Needs one CUDA card and nvcc. The shipped dispatch sends head_dim 64 to the
-DP = 80 instantiations (16 of 80 shared-memory columns are zero padding).
-The variant is a copy of perceptor_tpu_torch/csrc/ whose three dispatch
-functions get a line for d <= 64 with the same tiles (4 warps, 64 x 64),
-built into build/ beside the shipped library. For each kernel it prints one
-JSON line: ms per launch of the shipped and the variant kernel, timed in
-turns (shipped, variant, variant, shipped) with CUDA events on
+DP = 80 instantiations of dq and dk/dv (16 of 80 shared-memory columns are
+zero padding). The variant is a copy of perceptor_tpu_torch/csrc/ whose two
+dispatch functions get a line for d <= 64 with the same tiles (4 warps,
+64 x 64), built into build/ beside the shipped library. For each kernel it
+prints one JSON line: ms per launch of the shipped and the variant kernel,
+timed in turns (shipped, variant, variant, shipped) with CUDA events on
 head-interleaved inputs as the ADM AttentionBlock passes them; the
 variant's max |err| against the fp32 plain version; and both kernels'
 registers, local bytes, shared bytes and blocks per SM.
@@ -31,21 +32,21 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
 
-KERNELS = ("fwd", "dq", "dkv")
+KERNELS = ("dq", "dkv")
 
 
 def variant_sources() -> Path:
-    """A copy of csrc/ with a `d <= 64` line before each `d <= 80` one."""
+    """A copy of csrc/ with a `d <= 64` line before each backward `d <= 80` one."""
     src = REPO / "perceptor_tpu_torch" / "csrc"
     dst = REPO / "build" / "d64_trial"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
     mma = dst / "flash_mma.cu"
     text = mma.read_text()
-    line = re.compile(r"( *)(if \(a\.D <= )80(\) return launch_(?:fwd|dq|dkv)<)80(, [^>]*>\(a\);)")
+    line = re.compile(r"( *)(if \(a\.D <= )80(\) return launch_(?:dq|dkv)<)80(, [^>]*>\(a\);)")
     text, n = line.subn(r"\g<1>\g<2>64\g<3>64\g<4>\n\g<0>", text)
-    if n != 3:
-        raise RuntimeError(f"expected three d <= 80 dispatch lines in flash_mma.cu, found {n}")
+    if n != 2:
+        raise RuntimeError(f"expected two backward d <= 80 dispatch lines, found {n}")
     mma.write_text(text)
     return dst
 
@@ -77,8 +78,6 @@ def main() -> int:
     delta = (o.float() * do.float()).sum(-1)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     runs = {
-        "fwd": (lambda: fa.flash_forward(q, k, v, scale)[0],
-                lambda: fa.flash_forward_plain(qf, kf, vf, scale)[0]),
         "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, scale),
                lambda: fa.flash_dq_plain(qf, kf, vf, dof, lse, delta, scale)),
         "dkv": (lambda: torch.cat(fa.flash_dkv(q, k, v, do, lse, delta, scale)),

@@ -68,9 +68,14 @@ def _inputs(d, seed=0, b=1, h=2, s=SEQ):
     return [rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(4)]
 
 
-@pytest.mark.parametrize("d", [40, 80, 512])
-def test_plain_forward_and_lse_match_pallas(d):
-    q, k, v, _ = _inputs(d)
+@pytest.mark.parametrize("d, s", [
+    pytest.param(40, SEQ, id="40"), pytest.param(80, SEQ, id="80"),
+    pytest.param(512, SEQ, id="512"),
+    # SDXL's head_dim, one 128-row tile of the Hopper forward
+    pytest.param(64, 128, id="64-s128"),
+])
+def test_plain_forward_and_lse_match_pallas(d, s):
+    q, k, v, _ = _inputs(d, s=s)
     scale = 1.0 / np.sqrt(d)
     jq, jk, jv = (jfa._pad_head_dim(jnp.asarray(x))[0] for x in (q, k, v))
     j_out, j_lse = jfa._forward(jq, jk, jv, scale, BLOCK, BLOCK, True)
@@ -131,6 +136,73 @@ def test_cpu_wrappers_launch_no_kernel():
     tfa.flash_dq(q, k, v, do, lse, delta, 0.5)
     tfa.flash_dkv(q, k, v, do, lse, delta, 0.5)
     assert tfa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d, design", [
+    (8, "wgmma"), (32, "wgmma"), (40, "wgmma"), (48, "wgmma"), (56, "wgmma"), (64, "wgmma"),
+    (72, "wgmma"), (80, "wgmma"), (128, "wgmma"), (136, "mma"), (512, "mma"),
+])
+def test_forward_design_by_head_dim(d, design):
+    """bf16 head_dims up to 128 (SD-1.5's 40 and 80, SDXL's and ADM's 64,
+    LDM's 32) take the Hopper forward's tiles; above, the VAE's d = 512
+    among them, the mma.sync forward's, whose pair is the one its C dispatch
+    has for that head_dim. fp32 counts as its own design."""
+    blocks = tfa._kernel_blocks(d, "fwd", torch.bfloat16)
+    assert tfa.fwd_design(blocks, torch.bfloat16) == design
+    if design == "wgmma":
+        assert blocks == tfa.WGMMA_FWD_BLOCKS
+    else:
+        assert blocks == next(b for max_d, b in tfa.MMA_FWD_TILES if d <= max_d)
+    assert tfa.fwd_design(tfa._kernel_blocks(d, "fwd", torch.float32), torch.float32) == "fp32"
+
+
+@pytest.mark.parametrize("seq, d, ok", [
+    (1024, 64, True), (4096, 64, True), (1152, 40, True), (1088, 64, False),
+    (1088, 80, False), (1088, 512, True), (192, 64, False),
+])
+def test_check_blocks_with_the_hopper_forward_tiles(seq, d, ok):
+    """The Hopper forward's 128 x 128 tiles divide every sequence length that
+    is a multiple of 128, and `_check_blocks` refuses one they do not
+    divide, where the mma.sync forward at d = 512 (32 x 32) takes it."""
+    if ok:
+        assert tfa._check_blocks(seq, seq, d, "fwd", torch.bfloat16) == tfa._kernel_blocks(
+            d, "fwd", torch.bfloat16)
+    else:
+        with pytest.raises(ValueError, match="multiples of the fwd kernel's blocks"):
+            tfa._check_blocks(seq, seq, d, "fwd", torch.bfloat16)
+
+
+def test_fwd_design_launches_reset_and_cpu_wrappers_count_none():
+    """`reset_launches` zeroes the forward's launches by design beside
+    LAUNCHES, and the CPU wrappers (the plain versions) count in neither."""
+    for name in tfa.FWD_DESIGN_LAUNCHES:
+        tfa.FWD_DESIGN_LAUNCHES[name] = 3
+    tfa.LAUNCHES["flash_fwd"] = 9
+    tfa.reset_launches()
+    assert tfa.FWD_DESIGN_LAUNCHES == {"wgmma": 0, "mma": 0, "fp32": 0}
+    assert set(tfa.LAUNCHES.values()) == {0}
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(64, seed=6, s=128))
+    tfa.flash_forward(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16), 0.125)
+    assert tfa.FWD_DESIGN_LAUNCHES == {"wgmma": 0, "mma": 0, "fp32": 0}
+
+
+CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
+
+
+def test_forward_tile_tables_match_the_c_dispatch():
+    """WGMMA_FWD_BLOCKS is the pair flash_common.cuh hands to the Hopper
+    forward, and MMA_FWD_TILES the pairs of flash_mma.cu's forward dispatch
+    (block_q = 16 x row warps), so that a launch never passes a pair the C
+    side refuses."""
+    common = (CSRC / "flash_common.cuh").read_text()
+    bq, bk = re.search(r"kWgmmaBlockQ = (\d+), kWgmmaBlockK = (\d+);", common).groups()
+    assert (int(bq), int(bk)) == tfa.WGMMA_FWD_BLOCKS
+    mma = (CSRC / "flash_mma.cu").read_text()
+    lines = re.findall(r"if \(a\.D <= (\d+)\) return launch_fwd<(\d+), (\d+), (\d+), (\d+)>",
+                       mma)
+    table = tuple((int(d), (16 * int(rw), int(bk))) for d, dp, rw, _, bk in lines)
+    assert table == tfa.MMA_FWD_TILES
+    assert all(int(d) == int(dp) for d, dp, *_ in lines)
 
 
 def test_strided_views_match_contiguous():
@@ -218,3 +290,17 @@ def test_chip_smoke_names_each_kernel_source_and_pallas_kernel(name):
     for dtype in tfa.DTYPES:
         rows = tfa._TILES[(dtype, kernel)]
         assert rows[-1][0] == tfa.MAX_HEAD_DIM
+
+
+def test_chip_smoke_checks_the_forward_by_design():
+    """chip_smoke.py names the Hopper forward's source, which defines its
+    __global__ kernel, and its launches by design add up to the forward's
+    launches per UNet evaluation and per VAE call."""
+    smoke = _chip_smoke()
+    source = (REPO / smoke.FWD_WGMMA_SOURCE).read_text()
+    assert re.search(r"__global__\b[^;{}]*?\bfwd_wgmma_kernel\s*\(", source)
+    assert "perceptor_tpu/ops/flash_attention_kernel.py" in source
+    for path, designs in smoke.FWD_DESIGNS_PER_UNET_EVAL.items():
+        assert set(designs) == set(tfa.FWD_DESIGN_LAUNCHES)
+        assert sum(designs.values()) == smoke.PER_STEP[path]["flash_fwd"]
+    assert sum(smoke.FWD_DESIGNS_PER_VAE_CALL.values()) == smoke.PER_VAE_CALL["flash_fwd"]
