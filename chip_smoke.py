@@ -489,9 +489,10 @@ PER_STEP = {
 }
 # launches of one no-grad VAE decode or encode (the mid-block attention)
 PER_VAE_CALL = {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
-# the forward's launches by design (`fa.FWD_DESIGN_LAUNCHES`): per UNet
-# evaluation, every self-attention (d = 40 / 80, SDXL's d = 64) on the
-# Hopper design; per decode, the mid block's d = 512 on mma.sync
+# the forward's launches by design (`fa.FWD_DESIGN_LAUNCHES`), which the
+# head_dim picks: per UNet evaluation, every self-attention (d = 40 / 80,
+# SDXL's d = 64) on the Hopper design; per decode, the mid block's d = 512
+# on mma.sync
 FWD_DESIGNS_PER_UNET_EVAL = {
     "sample": {"wgmma": 10, "mma": 0, "fp32": 0},
     "sdxl_sample": {"wgmma": 70, "mma": 0, "fp32": 0},
@@ -956,7 +957,7 @@ def phase_kernels(fa) -> dict:
                 raise AssertionError(f"{kernel} {out_name} at {site}: max |err| {err} > {tol}")
             errors[kernel] = max(errors[kernel], err)
             record[out_name] = {"max_abs_err": err, "tol": tol}
-        design = forward_design(fa, q)
+        design = fa.fwd_design(q.shape[-1], q.dtype)
         lse_tol = WGMMA_LSE_ATOL if design == "wgmma" else LSE_ATOL
         lse_err = float((lse - lse_ref).abs().max())
         if not lse_err <= lse_tol:
@@ -990,11 +991,6 @@ def phase_kernels(fa) -> dict:
     return errors
 
 
-def forward_design(fa, q) -> str:
-    """The design ("wgmma" or "mma") the bf16 forward takes at q's head_dim."""
-    return fa.fwd_design(fa._kernel_blocks(q.shape[-1], "fwd", q.dtype), q.dtype)
-
-
 def check_forward(fa, site, inputs, backward=False) -> dict:
     """The forward kernel against its plain version on one site's bf16 q, k
     and v (a path that runs no backward): o within KERNEL_RTOL of the plain
@@ -1012,7 +1008,7 @@ def check_forward(fa, site, inputs, backward=False) -> dict:
     err, tol = float((o.float() - o_ref).abs().max()), KERNEL_RTOL * float(o_ref.abs().max())
     if not err <= tol:
         raise AssertionError(f"flash_fwd o at {site}: max |err| {err} > {tol}")
-    design = forward_design(fa, q)
+    design = fa.fwd_design(q.shape[-1], q.dtype)
     lse_tol = WGMMA_LSE_ATOL if design == "wgmma" else LSE_ATOL
     lse_err = float((lse - lse_ref).abs().max())
     if not lse_err <= lse_tol:
@@ -1596,8 +1592,9 @@ def profile_record(fn) -> dict:
     ]
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    # flash_attention.cu's (fp32) kernels are flash_*_kernel, flash_mma.cu's
-    # (bf16: fwd, dq, dk/dv) flash::*
+    # flash_attention.cu's (fp32) kernels are flash_*_kernel; the bf16 ones,
+    # flash_wgmma.cu's forward up to d = 128 and flash_mma.cu's (forward at
+    # d = 512, dq, dk/dv), are flash::*
     flash_us = sum(
         e.self_device_time_total for e in kernels if "flash_" in e.key or "flash::" in e.key
     )
@@ -4762,7 +4759,7 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
                 "flops": flops, "bytes": nbytes,
                 "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
                 "fused_bwd_ms": fused_bwd_ms,
-                **(forward_designs(fa, q, k, v, scale) if name == "flash_fwd" else {}),
+                **({"design": fa.fwd_design(d, q.dtype)} if name == "flash_fwd" else {}),
             })
     # the forward at the CFG sampling step's batch-2 sites and at SDXL's
     forward_sites = [(site, site_inputs, "sample", 120 + i) for i, site in enumerate(CFG_SITES)]
@@ -4782,7 +4779,7 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes, "sdpa_fwd_ms": sdpa_fwd,
-            **forward_designs(fa, q, k, v, scale),
+            "design": fa.fwd_design(d, q.dtype),
         })
 
     # per guided step: the port's two backward kernels against SDPA's
@@ -4807,16 +4804,6 @@ def phase_timings(fa, peak_flops, peak_bw) -> list:
     }
     emit({"phase": "timings", "ok": True, "rows": rows, "backward_per_step": backward})
     return rows
-
-
-def forward_designs(fa, q, k, v, scale) -> dict:
-    """The design the forward takes at this head_dim, and the ms a launch of
-    the mma.sync forward (`flash_mma.cu`) at the site, whichever design the
-    head_dim takes: the Hopper forward's yardstick."""
-    d = q.shape[-1]
-    blocks = next(blocks for max_d, blocks in fa.MMA_FWD_TILES if d <= max_d)
-    return {"design": forward_design(fa, q),
-            "mma_ms": time_ms(lambda: fa._launch_fwd(q, k, v, scale, blocks))}
 
 
 def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
@@ -4844,17 +4831,6 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
 
         t_ops = sum(r["flops"] * r["per_step"] for r in mine)
         t_bytes = sum(r["bytes"] * r["per_step"] for r in mine)
-        # the forward per step of the paths it leads, on each design: the
-        # guided step, a CFG sampling step, an SDXL UNet evaluation
-        forward = {}
-        if name == "flash_fwd":
-            sdxl_unet = [r for r in rows if r["kernel"] == name
-                         and r["site"].startswith("sdxl_unet")]
-            forward = {"ms_by_design_per_step": {
-                design: {"guided_step": weighted(key),
-                         "sample": sum(r[key] * r["per_step"] for r in sampling),
-                         "sdxl_sample": sum(r[key] * r["per_step"] for r in sdxl_unet)}
-                for design, key in (("new", "ms"), ("mma", "mma_ms"))}}
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             **({"wgmma_source": FWD_WGMMA_SOURCE} if name == "flash_fwd" else {}),
@@ -4866,12 +4842,15 @@ def kernel_table(rows, launches_by_path, per_step_by_path, errors) -> list:
             # one PyTorch call computes the forward alone (SDPA); none computes
             # dq or dk/dv alone (SDPA's backward returns all three)
             "library_ms": weighted("sdpa_fwd_ms") if name == "flash_fwd" else None,
-            "flops_per_step": t_ops, "bytes_per_step": t_bytes, **forward,
+            "flops_per_step": t_ops, "bytes_per_step": t_bytes,
             "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
             "launches_per_step": {path: counts[name] for path, counts in per_step_by_path.items()},
             "ms_per_step_by_path": {
                 "guided_step": weighted("ms"),
                 "sample": sum(r["ms"] * r["per_step"] for r in sampling),
+                # per SDXL UNet evaluation, forward only
+                "sdxl_sample": sum(r["ms"] * r["per_step"] for r in rows if r["kernel"] == name
+                                   and r["site"].startswith("sdxl_unet")),
                 "guided_sample": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 "guided_sample_text": weighted("ms", CFG_GUIDED_SITE_LAUNCHES),
                 # the 9-channel UNet has SD-1.x's sites
@@ -4904,6 +4883,7 @@ def main() -> int:
     from perceptor_tpu_torch import guided_step
     from perceptor_tpu_torch.models.guided_diffusion import GuidedDiffusion
     from perceptor_tpu_torch.models.stable_diffusion import StableDiffusion
+    from perceptor_tpu_torch.ops import cuda_library
     from perceptor_tpu_torch.ops import flash_attention_kernel as fa
     from perceptor_tpu_torch.ops import groupnorm as gn
     from perceptor_tpu_torch.utils.bench_env import triton_imports
@@ -4921,7 +4901,7 @@ def main() -> int:
     })
 
     t0 = time.perf_counter()
-    library = fa.build_library()
+    library = cuda_library.build_library()
     emit({"phase": "build", "ok": True, "library": library.name,
           "seconds": time.perf_counter() - t0})
 

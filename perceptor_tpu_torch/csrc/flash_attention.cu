@@ -1,10 +1,14 @@
 // Flash attention for Hopper (sm_90a): the C interface of the library and
 // the fp32 kernels. The bf16 kernels, which the guided SD step runs, are in
-// flash_mma.cu (mma.sync, intermediates in registers).
+// flash_wgmma.cu (the forward up to head_dim 128: TMA loads, wgmma
+// products) and flash_mma.cu (the forward at head_dim 512, dq and dk/dv:
+// mma.sync, intermediates in registers).
 //
 // Replaces the Pallas TPU kernels of perceptor_tpu/ops/flash_attention_kernel.py
 // for fp32 inputs:
-//   flash_fwd_kernel  <- _fwd_kernel     (bf16: flash_mma.cu's fwd_kernel)
+//   flash_fwd_kernel  <- _fwd_kernel     (bf16: flash_wgmma.cu's
+//                                         fwd_wgmma_kernel, flash_mma.cu's
+//                                         fwd_kernel at d = 512)
 //   flash_dq_kernel   <- _bwd_dq_kernel  (bf16: flash_mma.cu's dq_kernel)
 //   flash_dkv_kernel  <- _bwd_dkv_kernel (bf16: flash_mma.cu's dkv_kernel)
 //

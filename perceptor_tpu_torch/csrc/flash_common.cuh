@@ -1,7 +1,7 @@
 // Launch arguments shared by the flash-attention sources of this directory:
 // flash_attention.cu (the C interface and the fp32 kernels), flash_mma.cu
-// (the bf16 forward, dq and dk/dv on mma.sync) and flash_wgmma.cu (the bf16
-// forward on TMA and wgmma).
+// (the bf16 forward at head_dim 512, dq and dk/dv on mma.sync) and
+// flash_wgmma.cu (the bf16 forward up to head_dim 128 on TMA and wgmma).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,11 +47,11 @@ cudaError_t describe(Kernel kernel, int threads, size_t smem, int* info) {
   return err;
 }
 
-// bf16 forward, dq and dk/dv on the tensor cores (flash_mma.cu)
+// bf16 forward, dq and dk/dv on the tensor cores (flash_mma.cu); fwd_bf16
+// hands head_dims up to 128 to fwd_wgmma_bf16
 cudaError_t fwd_bf16(const Args& a);
 // the (block_q, block_k) pair of the Hopper forward (flash_wgmma.cu): 128
-// query rows, two consumer warpgroups of 64, by 128-key K/V tiles;
-// fwd_bf16 hands a launch with this pair to fwd_wgmma_bf16
+// query rows, two consumer warpgroups of 64, by 128-key K/V tiles
 constexpr int kWgmmaBlockQ = 128, kWgmmaBlockK = 128;
 cudaError_t fwd_wgmma_bf16(const Args& a);
 cudaError_t dq_bf16(const Args& a);

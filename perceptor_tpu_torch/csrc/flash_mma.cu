@@ -1,9 +1,10 @@
-// Flash attention for Hopper (sm_90a), bf16: the forward and both backward
-// kernels, with the scores, the probabilities, their gradients and the fp32
-// accumulators held in registers.
+// Flash attention for Hopper (sm_90a), bf16: the forward at head_dim 512
+// and both backward kernels, with the scores, the probabilities, their
+// gradients and the fp32 accumulators held in registers.
 //
 // Replaces the Pallas TPU kernels of perceptor_tpu/ops/flash_attention_kernel.py:
-//   fwd_kernel  <- _fwd_kernel      (launched by _forward)
+//   fwd_kernel  <- _fwd_kernel      (launched by _forward; d <= 128 runs
+//                                    flash_wgmma.cu's fwd_wgmma_kernel)
 //   dq_kernel   <- _bwd_dq_kernel   (launched by _backward)
 //   dkv_kernel  <- _bwd_dkv_kernel  (launched by _backward)
 // The fp32 kernels are in flash_attention.cu.
@@ -17,7 +18,7 @@
 // - Products are `mma.sync.m16n8k16` bf16 -> fp32 through inline PTX, with
 //   operands loaded by `ldmatrix` / `ldmatrix.trans`. Chosen over `wgmma`
 //   because its fp32 accumulator layout is, pair by pair, its A-operand
-//   layout: P (forward), dS (dq) and P^T, dS^T (dk/dv) are rounded to bf16
+//   layout: dS (dq) and P^T, dS^T (dk/dv) at d <= 128 are rounded to bf16
 //   in registers and fed straight into the next product. Each warp owns a
 //   16-row slab and needs no descriptor, swizzle mode or warpgroup fence.
 // - Online softmax in registers: the row max and sum are reduced across
@@ -30,9 +31,9 @@
 //   dO, lse and delta in dk/dv) are double-buffered with cp.async: the next
 //   tile's copies are issued before the current tile's products, and a tile
 //   costs two barriers. The block's own tiles (Q, Q and dO, or K and V) are
-//   loaded once; at d <= 128 the forward keeps its Q A-fragments in
-//   registers (for dq, keeping Q's and dO's saved no time on an H100 at
-//   d = 80 and spilled at d = 40, so it reloads them from shared memory).
+//   loaded once and read from shared memory at each tile (for dq, keeping
+//   Q's and dO's A-fragments in registers saved no time on an H100 at
+//   d = 80 and spilled at d = 40).
 // - Shared rows are padded by 16 bytes (pitch (DP + 8) * 2 with DP a
 //   multiple of 16, an odd number of 16-byte units), so the eight row
 //   addresses of each ldmatrix phase fall in distinct bank groups.
@@ -45,8 +46,8 @@
 //   forward exchanges row maxima and sums through a small shared array,
 //   and P (or dS, or P^T and dS^T) is staged once per tile as bf16 in
 //   shared memory for the second product; dq exchanges nothing else, since
-//   lse and delta are given. With CW = 1 (d <= 128) nothing is exchanged
-//   or staged.
+//   lse and delta are given. The backward kernels at d <= 128 run with
+//   CW = 1, and then exchange and stage nothing.
 //
 // Layout: (batch, heads, seq, head_dim) inputs with any batch/head/seq
 // strides (unit head_dim stride, 16-byte aligned rows); outputs contiguous.
@@ -274,13 +275,17 @@ struct FwdTile {
   static constexpr int SN = BK / CW, ON = DP / CW;
   static constexpr int LD = DP + 8, LDP = BK + 8;
   static_assert(DP % 16 == 0 && BK % 16 == 0 && SN % 8 == 0 && ON % 16 == 0, "bad tile");
-  // shared memory in bytes: Q; [stage][K, V] tiles; P (bf16) and the
-  // [CW][BQ] exchange array when CW > 1
+  // the head_dims up to 128 run flash_wgmma.cu's forward: this one splits
+  // the output columns of d = 512 over CW warps, which exchange row maxima
+  // and sums and stage P in shared memory
+  static_assert(CW > 1, "the forward splits its columns over warps");
+  // shared memory in bytes: Q; [stage][K, V] tiles; P (bf16); the [CW][BQ]
+  // exchange array
   static constexpr size_t q = 0;
   static constexpr size_t kv = q + size_t(BQ) * LD * 2;
   static constexpr size_t p = kv + size_t(4) * BK * LD * 2;
-  static constexpr size_t red = p + (CW > 1 ? size_t(BQ) * LDP * 2 : 0);
-  static constexpr size_t total = red + (CW > 1 ? size_t(CW) * BQ * 4 : 0);
+  static constexpr size_t red = p + size_t(BQ) * LDP * 2;
+  static constexpr size_t total = red + size_t(CW) * BQ * 4;
 };
 
 template <int DP, int RW, int CW, int BK>
@@ -322,7 +327,6 @@ __global__ void __launch_bounds__(RW* CW * 32)
   zero_acc(acc);
   float m_run[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
   float l_run[2] = {0.0f, 0.0f};            // this lane's part of the row sum
-  uint32_t qf[CW == 1 ? DP / 16 : 1][4];    // Q fragments, kept when CW == 1
 
   for (int kt = 0; kt < nk; ++kt) {
     const int stage = kt & 1;
@@ -338,14 +342,9 @@ __global__ void __launch_bounds__(RW* CW * 32)
     zero_acc(s);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      if constexpr (CW == 1) {
-        if (kt == 0) load_a<LD>(qf[kk], sQ, rw * 16, kk * 16, lane);
-        mma_abt<SN, LD>(s, qf[kk], sK, cw * SN, kk * 16, lane);
-      } else {
-        uint32_t a[4];
-        load_a<LD>(a, sQ, rw * 16, kk * 16, lane);
-        mma_abt<SN, LD>(s, a, sK, cw * SN, kk * 16, lane);
-      }
+      uint32_t a[4];
+      load_a<LD>(a, sQ, rw * 16, kk * 16, lane);
+      mma_abt<SN, LD>(s, a, sK, cw * SN, kk * 16, lane);
     }
 
     // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3)
@@ -360,17 +359,15 @@ __global__ void __launch_bounds__(RW* CW * 32)
     }
     mx[0] = quad_max(mx[0]);
     mx[1] = quad_max(mx[1]);
-    if constexpr (CW > 1) {
-      if (t == 0) {
-        red[cw * BQ + rw * 16 + g] = mx[0];
-        red[cw * BQ + rw * 16 + g + 8] = mx[1];
-      }
-      __syncthreads();
+    if (t == 0) {
+      red[cw * BQ + rw * 16 + g] = mx[0];
+      red[cw * BQ + rw * 16 + g + 8] = mx[1];
+    }
+    __syncthreads();
 #pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        mx[0] = fmaxf(mx[0], red[c * BQ + rw * 16 + g]);
-        mx[1] = fmaxf(mx[1], red[c * BQ + rw * 16 + g + 8]);
-      }
+    for (int c = 0; c < CW; ++c) {
+      mx[0] = fmaxf(mx[0], red[c * BQ + rw * 16 + g]);
+      mx[1] = fmaxf(mx[1], red[c * BQ + rw * 16 + g + 8]);
     }
     float alpha[2];
 #pragma unroll
@@ -396,40 +393,29 @@ __global__ void __launch_bounds__(RW* CW * 32)
       acc[j][3] *= alpha[1];
     }
 
-    // O += P V, P in bf16 as the A operand
-    if constexpr (CW == 1) {
+    // O += P V, P staged in bf16 as the A operand
+    store_acc<SN, T::LDP>(sP, s, rw * 16, cw * SN, lane);
+    __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        acc_to_a(a, s, kk);
-        mma_ab<ON, LD>(acc, a, sV, kk * 16, 0, lane);
-      }
-    } else {
-      store_acc<SN, T::LDP>(sP, s, rw * 16, cw * SN, lane);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        load_a<T::LDP>(a, sP, rw * 16, kk * 16, lane);
-        mma_ab<ON, LD>(acc, a, sV, kk * 16, cw * ON, lane);
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      load_a<T::LDP>(a, sP, rw * 16, kk * 16, lane);
+      mma_ab<ON, LD>(acc, a, sV, kk * 16, cw * ON, lane);
     }
     __syncthreads();  // the next iteration's copies overwrite this stage
   }
 
   float l[2] = {quad_sum(l_run[0]), quad_sum(l_run[1])};
-  if constexpr (CW > 1) {
-    if (t == 0) {
-      red[cw * BQ + rw * 16 + g] = l[0];
-      red[cw * BQ + rw * 16 + g + 8] = l[1];
-    }
-    __syncthreads();
-    l[0] = l[1] = 0.0f;
+  if (t == 0) {
+    red[cw * BQ + rw * 16 + g] = l[0];
+    red[cw * BQ + rw * 16 + g + 8] = l[1];
+  }
+  __syncthreads();
+  l[0] = l[1] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) {
-      l[0] += red[c * BQ + rw * 16 + g];
-      l[1] += red[c * BQ + rw * 16 + g + 8];
-    }
+  for (int c = 0; c < CW; ++c) {
+    l[0] += red[c * BQ + rw * 16 + g];
+    l[1] += red[c * BQ + rw * 16 + g + 8];
   }
   const long long row0 = ((long long)bb * H + hh) * Sq + (long long)qt * BQ + rw * 16;
   write_rows<ON>(o, acc, row0, cw * ON, D, 1.0f / l[0], 1.0f / l[1], lane);
@@ -774,12 +760,8 @@ cudaError_t launch_dq(const Args& a) {
 
 // Tiles per padded head_dim; (block_q, block_k) must be the pair that
 // ops/flash_attention_kernel.py `_kernel_blocks` gives, or the launcher
-// returns cudaErrorInvalidValue. The forward's pair (kWgmmaBlockQ,
-// kWgmmaBlockK) selects flash_wgmma.cu's kernel, which every head_dim up to
-// 128 takes; the mma.sync forward runs d = 512, and at d <= 80 it is the
-// yardstick that chip_smoke.py times the Hopper forward against.
-//   forward: d <= 48: 8 warps x 16 Q rows, 64-key tiles        (128, 64)
-//            d <= 80: 4 warps x 16 Q rows, 64-key tiles        (64, 64)
+// returns cudaErrorInvalidValue.
+//   forward: d <= 128: flash_wgmma.cu            (kWgmmaBlockQ, kWgmmaBlockK)
 //            d <= 512: 2 x 4 warps, 32 Q rows, 32-key tiles    (32, 32)
 //   dk/dv:   d <= 80: 4 warps x 16 keys, 64-query tiles        (64, 64)
 //            d <= 128: 4 warps x 16 keys, 32-query tiles       (32, 64)
@@ -788,9 +770,7 @@ cudaError_t launch_dq(const Args& a) {
 //            d <= 128: 4 warps x 16 Q rows, 64-key tiles       (64, 64)
 //            d <= 512: 2 x 4 warps, 32 Q rows, 32-key tiles    (32, 32)
 cudaError_t fwd_bf16(const Args& a) {
-  if (a.block_q == kWgmmaBlockQ && a.block_k == kWgmmaBlockK) return fwd_wgmma_bf16(a);
-  if (a.D <= 48) return launch_fwd<48, 8, 1, 64>(a);
-  if (a.D <= 80) return launch_fwd<80, 4, 1, 64>(a);
+  if (a.D <= 128) return fwd_wgmma_bf16(a);
   if (a.D <= 512) return launch_fwd<512, 2, 4, 32>(a);
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas TPU kernel perceptor_tpu/ops/flash_attention_kernel.py
 // `_fwd_kernel` (launched by `_forward`) at every bf16 head_dim up to 128:
-// ops/flash_attention_kernel.py `_TILES` sends them here with the pair
+// flash_mma.cu's `fwd_bf16` sends them here by head_dim, with the pair
 // kWgmmaBlockQ x kWgmmaBlockK (d = 32 and 40 run at DP = 64, d = 80 at 128);
 // d = 512 stays on flash_mma.cu's `fwd_kernel`. The output is that kernel's:
 // O in bf16, contiguous (B, H, Sq, D), and the row logsumexp in natural-log

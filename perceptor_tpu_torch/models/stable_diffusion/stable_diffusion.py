@@ -716,15 +716,15 @@ class StableDiffusion:
     # -- serving -------------------------------------------------------------
 
     def prime(self, sizes=((512, 512),), n_steps: int = 50, **kwargs) -> None:
-        """Warm the sampler for the given image sizes: build the flash
-        kernels' library (on CUDA), then run one short `sample` at each size
+        """Warm the sampler for the given image sizes: build the kernels'
+        CUDA library (on CUDA), then run one short `sample` at each size
         so that cuDNN's algorithm choices and the allocator's pools are
         settled before the first real call. Eager PyTorch compiles nothing,
         so this warms rather than compiles; `kwargs` go to `sample`."""
         if self.device.type == "cuda":
-            from perceptor_tpu_torch.ops import flash_attention_kernel
+            from perceptor_tpu_torch.ops import cuda_library
 
-            flash_attention_kernel.build_library()
+            cuda_library.build_library()
         for size in sizes:
             self.sample([""], n_steps=n_steps, size=tuple(size), **kwargs)
 

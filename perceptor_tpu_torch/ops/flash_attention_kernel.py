@@ -8,14 +8,13 @@ Counterpart of perceptor_tpu/ops/flash_attention_kernel.py (Pallas TPU):
     flash_dkv      <- _backward / _bwd_dkv_kernel
 
 Layout (batch, heads, seq, head_dim). The kernels live in `csrc/`:
-`flash_mma.cu` holds the three bf16 kernels (mma.sync with the scores,
-their gradients and the accumulators in registers), `flash_wgmma.cu` a
-second bf16 forward for Hopper (TMA loads, wgmma products, two consumer
-warpgroups whose softmax and products overlap) that `_TILES` picks by
-head_dim, `flash_attention.cu` the C interface and the fp32 kernels. Every
-source there is compiled by nvcc for sm_90a into one library in `build/` at
-first use and loaded with ctypes; `ops/groupnorm.py` binds the GroupNorm
-kernels of the same library (`csrc/groupnorm.cu`).
+`flash_wgmma.cu` holds the bf16 forward up to head_dim 128 (TMA loads,
+wgmma products, two consumer warpgroups whose softmax and products
+overlap), `flash_mma.cu` the bf16 forward at head_dim 512 and the two bf16
+backward kernels (mma.sync with the scores, their gradients and the
+accumulators in registers), `flash_attention.cu` the C interface and the
+fp32 kernels. `ops/cuda_library.py` builds them, with the GroupNorm
+kernels, into the one library that both op modules call.
 
 Each kernel is an op of the `perceptor_tpu_torch` library
 (`torch.library.custom_op`: `perceptor_tpu_torch::flash_fwd`, `::flash_dq`,
@@ -26,7 +25,8 @@ the output shapes, and `register_autograd` joins the forward to the two
 backward ops. So `torch.export` keeps each kernel as one node of its graph,
 and a loaded program counts its launches as the eager path does. `_TILES`
 is the one table of tile sizes: each launch passes its (block_q, block_k)
-pair, and the C dispatch refuses a pair it has not instantiated.
+pair, and the C dispatch, which picks a kernel by head_dim, refuses a pair
+that is not that kernel's.
 
 Backward: the two-kernel scheme of the JAX package. The residuals
 (q, k, v, o, lse) let each kernel recompute p = exp(scale * q k^T - lse)
@@ -38,22 +38,15 @@ is computed in fp32 before the launches, as the JAX code does.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-# -Xptxas -v: each kernel's registers and spills go to the build report
-NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from perceptor_tpu_torch.ops import cuda_library
+# benchmark/run.py builds the library through this module
+from perceptor_tpu_torch.ops.cuda_library import build_library, library_path  # noqa: F401
+
 MAX_HEAD_DIM = 512
 
 # kernel launches per wrapper, reset by callers that need to prove a path
@@ -104,7 +97,7 @@ def flash_dkv_plain(q, k, v, do, lse, delta, scale: float):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-# -- the CUDA library ----------------------------------------------------------
+# -- the CUDA entry points ---------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -120,96 +113,8 @@ _ARGTYPES = {
     # kernel (0 fwd, 1 dq, 2 dkv), D, is_f32, block_q, block_k, int[5] out
     "flash_describe": [_I] * 5 + [_P],
 }
+cuda_library.declare(_ARGTYPES)
 DTYPES = (torch.bfloat16, torch.float32)
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return found
-
-
-def _sources(csrc: Path):
-    return sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
-
-
-def library_path(csrc: Path = _CSRC) -> Path:
-    """Where `build_library` puts the library of these sources and flags:
-    build/libflash_attention_<hash of both>.so."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in _sources(csrc):
-        digest.update(f.name.encode() + b"\0" + f.read_bytes())
-    return _BUILD_DIR / f"libflash_attention_{digest.hexdigest()[:12]}.so"
-
-
-def build_library(csrc: Path = _CSRC) -> Path:
-    """Compile every source under `csrc` (the package's csrc/ by default)
-    for sm_90a (one nvcc per .cu file, all started together) and link them
-    into one shared library in build/, once per version of the sources and
-    flags; return its path. The compilers' reports (ptxas registers and
-    spills per kernel) are kept beside it as `<library>.ptxas.txt`."""
-    files = _sources(csrc)
-    out = library_path(csrc)
-    if out.exists():
-        return out
-    tag = out.stem.removeprefix("libflash_attention_")
-    nvcc = _nvcc()
-    work = _BUILD_DIR / f"obj_{tag}_{os.getpid()}"
-    work.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    try:
-        for src in (f for f in files if f.suffix == ".cu"):
-            obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
-            with open(log, "w") as sink:
-                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                jobs.append((src, obj, log, subprocess.Popen(cmd, stdout=sink, stderr=sink)))
-        reports = []
-        for src, _, log, proc in jobs:
-            proc.wait()
-            reports.append(f"== {src.name}\n{log.read_text()}")
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src.name} ({proc.returncode}):\n{reports[-1][-8000:]}"
-                )
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *_ARCH, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-        out.with_suffix(".ptxas.txt").write_text("\n".join(reports))
-        os.replace(tmp, out)
-    finally:
-        for *_, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(work, ignore_errors=True)
-    return out
-
-
-def load_library(path: Path) -> ctypes.CDLL:
-    """A library that `build_library` built, with the C entry points'
-    argument types set."""
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = load_library(build_library())
-    return _lib
 
 
 def _check_cuda_inputs(named, seq_dims):
@@ -254,24 +159,17 @@ def _strides(*tensors):
     return (ctypes.c_longlong * 12)(*values, *([0] * (12 - len(values))))
 
 
-def _raise_on_error(name: str, err: int):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
 # (block_q, block_k) of each kernel by dtype and head_dim: rows of (largest
 # head_dim, tiles). The wrappers pass the pair to the C entry points, whose
-# dispatch returns an error for a pair it has not instantiated. The bf16
-# forward's pair WGMMA_FWD_BLOCKS selects the Hopper design (`flash_wgmma.cu`,
-# head_dim padded to 64 or 128), which every head_dim up to 128 takes: on an
-# H100 it ran in 0.38-0.66 of the mma.sync forward's time at every site of
-# the main paths (d = 32 and 40 padded to 64, 64, 80 padded to 128). The
-# mma.sync forward (`flash_mma.cu`, pairs MMA_FWD_TILES) keeps d = 512; its
-# rows up to d = 80 are the yardstick chip_smoke.py times against.
+# dispatch picks the kernel by head_dim and returns an error for a pair that
+# is not that kernel's. The bf16 forward up to head_dim 128 runs the Hopper
+# design (`flash_wgmma.cu`, head_dim padded to 64 or 128): on an H100 it ran
+# in 0.38-0.66 of the mma.sync forward's time at every site of the main
+# paths (d = 32 and 40 padded to 64, 64, 80 padded to 128). The mma.sync
+# forward (`flash_mma.cu`) runs d = 512.
 WGMMA_FWD_BLOCKS = (128, 128)
-MMA_FWD_TILES = ((48, (128, 64)), (80, (64, 64)), (512, (32, 32)))
 _TILES = {
-    (torch.bfloat16, "fwd"): ((128, WGMMA_FWD_BLOCKS), MMA_FWD_TILES[-1]),
+    (torch.bfloat16, "fwd"): ((128, WGMMA_FWD_BLOCKS), (512, (32, 32))),
     (torch.bfloat16, "dq"): ((48, (128, 64)), (128, (64, 64)), (512, (32, 32))),
     (torch.bfloat16, "dkv"): ((80, (64, 64)), (128, (32, 64)), (512, (32, 32))),
     (torch.float32, "fwd"): ((128, (32, 32)), (512, (16, 32))),
@@ -300,12 +198,13 @@ def _check_blocks(sq: int, sk: int, d: int, kernel: str, dtype: torch.dtype):
     return bq, bk
 
 
-def fwd_design(blocks, dtype: torch.dtype) -> str:
-    """The key of FWD_DESIGN_LAUNCHES that a forward launch with this
-    (block_q, block_k) pair and dtype counts under."""
+def fwd_design(d: int, dtype: torch.dtype) -> str:
+    """The key of FWD_DESIGN_LAUNCHES that a forward launch at this head_dim
+    and dtype counts under."""
     if dtype == torch.float32:
         return "fp32"
-    return "wgmma" if tuple(blocks) == WGMMA_FWD_BLOCKS else "mma"
+    # the first row of the bf16 forward's tiles is the Hopper design's
+    return "wgmma" if d <= _TILES[(dtype, "fwd")][0][0] else "mma"
 
 
 _KERNEL_IDS = {"fwd": 0, "dq": 1, "dkv": 2}
@@ -317,10 +216,8 @@ def kernel_info(kernel: str, d: int, dtype: torch.dtype) -> dict:
     or "dkv") runs at this head_dim and dtype, read from the CUDA runtime."""
     bq, bk = _kernel_blocks(d, kernel, dtype)
     info = (ctypes.c_int * 5)()
-    err = _library().flash_describe(
-        _KERNEL_IDS[kernel], d, dtype == torch.float32, bq, bk, info
-    )
-    _raise_on_error(f"flash_describe({kernel}, {d})", err)
+    cuda_library.call("flash_describe", _KERNEL_IDS[kernel], d, dtype == torch.float32, bq, bk,
+                      info)
     keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
     return {"block_q": bq, "block_k": bk, **dict(zip(keys, info))}
 
@@ -338,10 +235,6 @@ def kernel_info(kernel: str, d: int, dtype: torch.dtype) -> dict:
 # the ops.
 
 
-def _cuda_stream(q):
-    return torch.cuda.current_stream(q.device).cuda_stream
-
-
 @torch.library.custom_op("perceptor_tpu_torch::flash_fwd", mutates_args=(), device_types="cpu")
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -353,27 +246,19 @@ def _flash_fwd_cuda(q, k, v, scale):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _check_cuda_inputs([("q", q), ("k", k), ("v", v)], [sq, sk, sk])
-    return _launch_fwd(q, k, v, scale, _check_blocks(sq, sk, d, "fwd", q.dtype))
-
-
-def _launch_fwd(q, k, v, scale, blocks):
-    """(o, lse) from the forward kernel that the (block_q, block_k) pair
-    selects, on checked CUDA inputs; counts the launch."""
-    b, h, sq, d = q.shape
-    design = fwd_design(blocks, q.dtype)
+    blocks = _check_blocks(sq, sk, d, "fwd", q.dtype)
+    design = fwd_design(d, q.dtype)
     if design == "wgmma":
         # the tensor maps take no zero stride over more than one element
         q, k, v = (t if all(st or n == 1 for st, n in zip(t.stride(), t.shape))
                    else t.contiguous() for t in (q, k, v))
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _library().flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, h, sq, k.shape[2], d, _strides(q, k, v), float(scale), q.dtype == torch.float32,
-            *blocks, _cuda_stream(q),
-        )
-    _raise_on_error("flash_fwd", err)
+    cuda_library.launch(
+        "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, h, sq, sk, d, _strides(q, k, v), float(scale),
+        q.dtype == torch.float32, *blocks,
+    )
     LAUNCHES["flash_fwd"] += 1
     FWD_DESIGN_LAUNCHES[design] += 1
     return o, lse
@@ -405,13 +290,11 @@ def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Te
 def _flash_dq_cuda(q, k, v, do, lse, delta, scale):
     b, h, sq, sk, d, bq, bk = _bwd_checks(q, k, v, do, lse, delta, "dq")
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _library().flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d, _strides(q, k, v, do),
-            float(scale), q.dtype == torch.float32, bq, bk, _cuda_stream(q),
-        )
-    _raise_on_error("flash_dq", err)
+    cuda_library.launch(
+        "flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
+        _strides(q, k, v, do), float(scale), q.dtype == torch.float32, bq, bk,
+    )
     LAUNCHES["flash_dq"] += 1
     return dq
 
@@ -433,14 +316,11 @@ def _flash_dkv_cuda(q, k, v, do, lse, delta, scale):
     b, h, sq, sk, d, bq, bk = _bwd_checks(q, k, v, do, lse, delta, "dkv")
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=v.device)
-    with torch.cuda.device(q.device):
-        err = _library().flash_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
-            _strides(q, k, v, do), float(scale), q.dtype == torch.float32, bq, bk,
-            _cuda_stream(q),
-        )
-    _raise_on_error("flash_dkv", err)
+    cuda_library.launch(
+        "flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
+        _strides(q, k, v, do), float(scale), q.dtype == torch.float32, bq, bk,
+    )
     LAUNCHES["flash_dkv"] += 1
     return dk, dv
 

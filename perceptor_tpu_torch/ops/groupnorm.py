@@ -34,13 +34,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perceptor_tpu_torch.ops import cuda_library
 from perceptor_tpu_torch.utils import profiling
 
 
@@ -269,26 +269,7 @@ _ARGTYPES = {
     # chunk_vecs | stream
     "gn_backward": [_P] * 10 + [_I] * 12 + [_P],
 }
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _library():
-    """The kernels' library: every source of csrc/ built into one by
-    `flash_attention_kernel.build_library` at first use."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            from perceptor_tpu_torch.ops.flash_attention_kernel import build_library
-
-            lib = ctypes.CDLL(str(build_library()))
-            for name, argtypes in _ARGTYPES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+cuda_library.declare(_ARGTYPES)
 
 
 def _check_devices(x, *others) -> None:
@@ -315,11 +296,6 @@ def _vec(hw: int, *tensors) -> int:
     if hw % VEC == 0 and all(t.data_ptr() % (VEC * t.element_size()) == 0 for t in tensors):
         return VEC
     return 1
-
-
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 # -- the registered ops ------------------------------------------------------
@@ -353,14 +329,11 @@ def _gn_cuda(x, scale, bias, num_groups, eps, out_dtype, activation):
     vec = _vec(hw, x, y)
     launch = (vec, *launch_shape(n * c, hw, vec))
     partial = torch.empty((n * c * launch[2] * 2,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().gn_forward(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), partial.data_ptr(), n, c, hw, num_groups, per_sample, float(eps),
-            ACTIVATIONS[activation], DTYPES[x.dtype], DTYPES[out_dtype], *launch,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _raise_on_error("gn_forward", err)
+    cuda_library.launch(
+        "gn_forward", x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(), n, c, hw, num_groups, per_sample,
+        float(eps), ACTIVATIONS[activation], DTYPES[x.dtype], DTYPES[out_dtype], *launch,
+    )
     GN_LAUNCHES["gn_stats"] += 1
     GN_LAUNCHES["gn_apply"] += 1
     return y, mean, rstd
@@ -410,15 +383,12 @@ def _gn_bwd_cuda(dy, x, scale, bias, mean, rstd, activation):
     vec = _vec(hw, x, dy, dx)
     launch = (vec, *launch_shape(n * c, hw, vec))
     partial = torch.empty((n * c * launch[2] * 2,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().gn_backward(
-            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), dx.data_ptr(), dh_sum.data_ptr(), dhx_sum.data_ptr(),
-            partial.data_ptr(), n, c, hw, num_groups, per_sample,
-            ACTIVATIONS[activation], DTYPES[x.dtype], DTYPES[dy.dtype], *launch,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _raise_on_error("gn_backward", err)
+    cuda_library.launch(
+        "gn_backward", x.device, x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dh_sum.data_ptr(), dhx_sum.data_ptr(),
+        partial.data_ptr(), n, c, hw, num_groups, per_sample, ACTIVATIONS[activation],
+        DTYPES[x.dtype], DTYPES[dy.dtype], *launch,
+    )
     GN_LAUNCHES["gn_bwd_sums"] += 1
     GN_LAUNCHES["gn_bwd_dx"] += 1
     return dx, dh_sum, dhx_sum

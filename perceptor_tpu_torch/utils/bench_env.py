@@ -71,14 +71,14 @@ def triton_imports() -> bool:
 
 
 def build_kernels() -> dict:
-    """Build the flash-attention library if build/ does not hold it yet:
+    """Build the kernels' CUDA library if build/ does not hold it yet:
     {"library", "state": "hit" | "built", "seconds"}."""
-    from perceptor_tpu_torch.ops import flash_attention_kernel as fa
+    from perceptor_tpu_torch.ops import cuda_library
 
-    path = fa.library_path()
+    path = cuda_library.library_path()
     state = "hit" if path.exists() else "built"
     t0 = time.perf_counter()
-    fa.build_library()
+    cuda_library.build_library()
     return {"library": path.name, "state": state, "seconds": time.perf_counter() - t0}
 
 

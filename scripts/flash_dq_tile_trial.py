@@ -59,18 +59,22 @@ def variant_sources(name, bound, template) -> Path:
 
 
 @contextlib.contextmanager
-def using(fa, lib, bound, blocks):
-    """Route the wrappers through `lib` with dq's tile pair for `bound`."""
+def using(fa, library, bound, blocks):
+    """Route the wrappers through the library at `library` with dq's tile
+    pair for `bound`."""
     import torch
 
+    from perceptor_tpu_torch.ops import cuda_library
+
     key = (torch.bfloat16, "dq")
-    saved_lib, saved_tiles = fa._library(), fa._TILES[key]
-    fa._lib = lib
+    saved_tiles = fa._TILES[key]
+    cuda_library.load_library(library)
     fa._TILES[key] = tuple(sorted({**dict(saved_tiles), bound: blocks}.items()))
     try:
         yield
     finally:
-        fa._lib, fa._TILES[key] = saved_lib, saved_tiles
+        cuda_library.load_library(cuda_library.library_path())
+        fa._TILES[key] = saved_tiles
 
 
 def main() -> int:
@@ -79,12 +83,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_dq_tile_trial: CUDA is not available", file=sys.stderr)
         return 1
+    from perceptor_tpu_torch.ops import cuda_library
     from perceptor_tpu_torch.ops import flash_attention_kernel as fa
 
-    fa._library()  # build the shipped library first
+    cuda_library.load_library()  # build the shipped library first
     for name, bound, template in VARIANTS:
         _, rw, _, bk = template
-        lib = fa.load_library(fa.build_library(variant_sources(name, bound, template)))
+        lib = cuda_library.build_library(variant_sources(name, bound, template))
         site, b, h, s, d, _ = SITE_BY_BOUND[bound]
         q, k, v, do = chip_smoke.site_inputs(b, h, s, d, seed=100)
         scale = 1.0 / math.sqrt(d)

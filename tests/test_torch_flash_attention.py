@@ -144,16 +144,13 @@ def test_cpu_wrappers_launch_no_kernel():
 ])
 def test_forward_design_by_head_dim(d, design):
     """bf16 head_dims up to 128 (SD-1.5's 40 and 80, SDXL's and ADM's 64,
-    LDM's 32) take the Hopper forward's tiles; above, the VAE's d = 512
-    among them, the mma.sync forward's, whose pair is the one its C dispatch
-    has for that head_dim. fp32 counts as its own design."""
+    LDM's 32) take the Hopper forward and its tiles; above, the VAE's
+    d = 512 among them, the mma.sync forward's 32 x 32. fp32 counts as its
+    own design."""
     blocks = tfa._kernel_blocks(d, "fwd", torch.bfloat16)
-    assert tfa.fwd_design(blocks, torch.bfloat16) == design
-    if design == "wgmma":
-        assert blocks == tfa.WGMMA_FWD_BLOCKS
-    else:
-        assert blocks == next(b for max_d, b in tfa.MMA_FWD_TILES if d <= max_d)
-    assert tfa.fwd_design(tfa._kernel_blocks(d, "fwd", torch.float32), torch.float32) == "fp32"
+    assert tfa.fwd_design(d, torch.bfloat16) == design
+    assert blocks == (tfa.WGMMA_FWD_BLOCKS if design == "wgmma" else (32, 32))
+    assert tfa.fwd_design(d, torch.float32) == "fp32"
 
 
 @pytest.mark.parametrize("seq, d, ok", [
@@ -190,19 +187,24 @@ CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
 
 
 def test_forward_tile_tables_match_the_c_dispatch():
-    """WGMMA_FWD_BLOCKS is the pair flash_common.cuh hands to the Hopper
-    forward, and MMA_FWD_TILES the pairs of flash_mma.cu's forward dispatch
-    (block_q = 16 x row warps), so that a launch never passes a pair the C
-    side refuses."""
+    """flash_mma.cu's bf16 forward dispatch picks its kernel by head_dim
+    alone, at the rows of `_TILES`: the Hopper forward up to d = 128, whose
+    pair (flash_common.cuh's kWgmmaBlockQ/K) is WGMMA_FWD_BLOCKS, and the
+    mma.sync forward at d = 512 (block_q = 16 x row warps), so that a launch
+    never passes a pair the C side refuses."""
     common = (CSRC / "flash_common.cuh").read_text()
     bq, bk = re.search(r"kWgmmaBlockQ = (\d+), kWgmmaBlockK = (\d+);", common).groups()
     assert (int(bq), int(bk)) == tfa.WGMMA_FWD_BLOCKS
     mma = (CSRC / "flash_mma.cu").read_text()
-    lines = re.findall(r"if \(a\.D <= (\d+)\) return launch_fwd<(\d+), (\d+), (\d+), (\d+)>",
-                       mma)
-    table = tuple((int(d), (16 * int(rw), int(bk))) for d, dp, rw, _, bk in lines)
-    assert table == tfa.MMA_FWD_TILES
-    assert all(int(d) == int(dp) for d, dp, *_ in lines)
+    body = re.search(r"cudaError_t fwd_bf16\(const Args& a\) \{\n(.*?)\n\}", mma, re.S).group(1)
+    lines = [line.strip() for line in body.splitlines()]
+    assert lines == [
+        "if (a.D <= 128) return fwd_wgmma_bf16(a);",
+        "if (a.D <= 512) return launch_fwd<512, 2, 4, 32>(a);",
+        "return cudaErrorInvalidValue;",
+    ]
+    assert tfa._TILES[(torch.bfloat16, "fwd")] == (
+        (128, tfa.WGMMA_FWD_BLOCKS), (512, (16 * 2, 32)))
 
 
 def test_strided_views_match_contiguous():

@@ -162,7 +162,8 @@ def test_module_imports_and_runs_on_the_cpu_without_cuda_or_nvcc(tmp_path):
         "y = gn.fused_group_norm_act(x, torch.ones(8), torch.zeros(8), 4)\n"
         "y.sum().backward()\n"
         "assert x.grad.shape == x.shape\n"
-        "assert gn._lib is None and sum(gn.GN_LAUNCHES.values()) == 0\n"
+        "from perceptor_tpu_torch.ops import cuda_library\n"
+        "assert cuda_library._lib is None and sum(gn.GN_LAUNCHES.values()) == 0\n"
         "assert torch.ops.perceptor_tpu_torch.group_norm_act_backward.default\n"
         "print('ok')\n"
     )
