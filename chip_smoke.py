@@ -752,6 +752,22 @@ GN_PER_ENCODE = 21
 GN_PER_GUIDED_STEP = GN_PER_UNET_EVAL + GN_PER_DECODE
 # SDXL's UNet: 17 res blocks x 2 and conv_norm_out; its decoder is SD's
 GN_PER_SDXL_UNET_EVAL = 35
+# The fused residual add + LayerNorm's sites, (site, batch, tokens,
+# channels): the transformer blocks of SDXL's UNet at its CFG batch 8 (60
+# blocks at 1,024 tokens of 1,280, 10 at 4,096 of 640) and of SD-1.5's at
+# b8's CFG batch 16 (its four levels); each with the branch to add and
+# without
+LN_SITES = (
+    ("sdxl_1280x1024_b8", 8, 1024, 1280), ("sdxl_640x4096_b8", 8, 4096, 640),
+    ("sd_320x4096_b16", 16, 4096, 320), ("sd_640x1024_b16", 16, 1024, 640),
+    ("sd_1280x256_b16", 16, 256, 1280), ("sd_1280x64_b16", 16, 64, 1280),
+)
+# the op's calls a UNet evaluation: three a transformer block (norm1 without
+# a branch, norm2 and norm3 with one), in bf16 with no gradient; none where a
+# gradient flows through the UNet (the guided step)
+LN_PER_UNET_EVAL = {"layer_norm": 16, "add_layer_norm": 32}  # SD-1.x: 16 blocks
+LN_PER_SDXL_UNET_EVAL = {"layer_norm": 70, "add_layer_norm": 140}
+LN_PER_GUIDED_STEP = {"layer_norm": 0, "add_layer_norm": 0}
 LSE_ATOL = 1e-3
 # the Hopper forward's lse: fp32 statistics of one ex2.approx a score and
 # one logf a row, a few fp32 ulps of values up to ~20 (2e-6 measured on an
@@ -1213,6 +1229,102 @@ def phase_group_norm(gn) -> dict:
     return errors
 
 
+def ln_inputs(site, seed):
+    """x and h (bf16 (B, S, C), a residual of mean 0.3 and spread 1.5 and a
+    branch of spread 1) and a LayerNorm's fp32 affine near (1, 0)."""
+    import torch
+
+    _, b, s, c = site
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((b, s, c), generator=gen, device="cuda") * 1.5 + 0.3).to(torch.bfloat16)
+    h = torch.randn((b, s, c), generator=gen, device="cuda").to(torch.bfloat16)
+    weight = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    return x, h, weight, bias
+
+
+def phase_layer_norm(ln) -> dict:
+    """The fused residual add + LayerNorm kernel against its plain version on
+    the same bf16 inputs at LN_SITES, with the branch and without: r bitwise
+    the plain bf16 add; y within one bf16 spacing of each row's largest
+    fp32 magnitude of the plain fp32 norm, and the share of y equal to the
+    plain version's bf16; two launches bitwise equal. Then the device ms of
+    a call against its byte bound (x and h read, r and y written: 8 bytes
+    an element; 4 without h), the plain version (the add, `.float()`, fp32
+    `F.layer_norm`, one cast to bf16) and ATen's bf16 `F.layer_norm` after
+    the add, which the port never calls. Returns the largest max |err| of y."""
+    import torch
+    import torch.nn.functional as F
+
+    from perceptor_tpu_torch.utils.flops import card_peaks
+
+    _, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    eps, worst, records = 1e-5, 0.0, []
+    for i, site in enumerate(LN_SITES):
+        name, b, s, c = site
+        x, h, weight, bias = ln_inputs(site, seed=400 + i)
+        w16, b16 = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+        for branch in (h, None):
+            r, y = ln._ln_op(x, branch, weight, bias, eps)
+            r2, y2 = ln._ln_op(x, branch, weight, bias, eps)
+            r_ref, y_plain = ln.add_layer_norm_plain(x, branch, weight, bias, eps)
+            y32 = F.layer_norm(r_ref.float(), (c,), weight, bias, eps)
+            torch.cuda.synchronize()
+            label = f"layer norm at {name} ({'with' if branch is not None else 'without'} h)"
+            if not (torch.equal(r2, r) and torch.equal(y2, y)):
+                raise AssertionError(f"{label}: two launches differ")
+            if branch is not None and not torch.equal(r, r_ref):
+                raise AssertionError(f"{label}: r is not the bf16 add")
+            if branch is None and r.numel():
+                raise AssertionError(f"{label}: r written without h")
+            err = (y.float() - y32).abs().amax(dim=-1)
+            spacing = torch.exp2(torch.floor(torch.log2(y32.abs().amax(dim=-1))) - 7)
+            if not bool((err <= spacing).all()):
+                over = float((err / spacing).max())
+                raise AssertionError(f"{label}: y off by {over} bf16 spacings of its row")
+            worst = max(worst, float(err.max()))
+            bytes_per = 8 if branch is not None else 4
+            record = {
+                "site": name, "shape": [b, s, c], "with_h": branch is not None,
+                "max_abs_err": float(err.max()),
+                "max_err_in_spacings": float((err / spacing).max()),
+                "equal_to_plain_share": float((y == y_plain).float().mean()),
+                "kernel_ms": time_ms(lambda: ln._ln_op(x, branch, weight, bias, eps)),
+                "plain_ms": time_ms(lambda: ln.add_layer_norm_plain(x, branch, weight, bias,
+                                                                    eps)),
+                "library_ms": time_ms(lambda: F.layer_norm(
+                    x if branch is None else x + branch, (c,), w16, b16, eps)),
+                "bound_ms": bytes_per * x.numel() / peak_bw * 1e3,
+            }
+            record["roofline"] = record["bound_ms"] / record["kernel_ms"]
+            records.append(record)
+    emit({"phase": "layer_norm", "ok": True, "sites": records})
+    return {"add_layer_norm": worst}
+
+
+def check_ln_launches(path: str, got: dict, evals: int, per_eval: dict) -> None:
+    """LN_LAUNCHES of `evals` UNet evaluations against `per_eval` each."""
+    want = {k: n * evals for k, n in per_eval.items()}
+    if got != want:
+        raise AssertionError(f"{path}: LayerNorm launches {got}, want {want}")
+
+
+def phase_layer_norm_guided(ln, step) -> None:
+    """LN_LAUNCHES of two guided steps, asserted LN_PER_GUIDED_STEP: the
+    gradient flows through the UNet, so its blocks keep the unfused chain.
+    (`sample` and `sdxl_sample` assert the launches of a UNet evaluation.)"""
+    import torch
+
+    latents, context = step.initial_inputs()
+    torch.cuda.synchronize()
+    ln.reset_launches()
+    for _ in range(2):
+        latents, _ = step.guided_denoise_step(latents, context)
+    torch.cuda.synchronize()
+    check_ln_launches("guided step", dict(ln.LN_LAUNCHES), 2, LN_PER_GUIDED_STEP)
+    emit({"phase": "layer_norm_guided", "ok": True, "per_guided_step": LN_PER_GUIDED_STEP})
+
+
 def record_gn_calls(gn, fn) -> list:
     """Runs `fn()` with the GroupNorm ops watched: one (kind, x shape, x
     dtype, per-sample affine, groups, eps, output dtype, activation, whether
@@ -1668,13 +1780,14 @@ def check_designs(path, timer, evals, decodes) -> dict:
     return designs
 
 
-def phase_sample(fa, sd, gn):
+def phase_sample(fa, sd, gn, ln):
     """`StableDiffusion.sample` at 512px, batch 1, CFG 7: a 20-step DDIM, a
     10-step DPM-Solver++(2M) and an img2img/RePaint run from the first
     image. Per run: the schedule's k, flash launches (the loop's per UNet
     evaluation, the decode's and encode's, each asserted), the GroupNorm
     launches (GN_PER_UNET_EVAL a UNet evaluation, GN_PER_DECODE and
-    GN_PER_ENCODE a decode and an encode; asserted), the image
+    GN_PER_ENCODE a decode and an encode; asserted), the LayerNorm
+    launches (LN_PER_UNET_EVAL a UNet evaluation; asserted), the image
     (asserted finite, (1, 3, 512, 512)), seconds per image, the text
     encoding, the UNet loop and the decode apart, and peak memory. Returns
     (launches, launches per UNet evaluation)."""
@@ -1698,6 +1811,7 @@ def phase_sample(fa, sd, gn):
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
         gn.reset_launches()
+        ln.reset_launches()
         t0 = time.perf_counter()
         images = sd.sample([PROMPT], guidance_scale=CFG_SCALE, size=size, generator=generator(0),
                            **options)
@@ -1705,6 +1819,7 @@ def phase_sample(fa, sd, gn):
         wall = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
         gn_launches = dict(gn.GN_LAUNCHES)
+        ln_launches = dict(ln.LN_LAUNCHES)
         timer.remove()
         parts = {part: timer.launches(part) for part in timer.calls}
         measured = per_step(parts["sample_loop"], evals)
@@ -1725,6 +1840,7 @@ def phase_sample(fa, sd, gn):
         if gn_launches != gn_want:
             raise AssertionError(f"sample {name}: GroupNorm launches {gn_launches}, "
                                  f"want {gn_want}")
+        check_ln_launches(f"sample {name}", ln_launches, evals, LN_PER_UNET_EVAL)
         if images.shape != (1, 3, IMAGE_SIZE, IMAGE_SIZE) or not torch.isfinite(images).all():
             raise AssertionError(f"sample {name}: images {tuple(images.shape)} not finite")
         loop_ms = timer.ms("sample_loop")
@@ -1732,7 +1848,7 @@ def phase_sample(fa, sd, gn):
             "run": name, "options": {k: v for k, v in options.items() if k != "init_images"},
             "k": k, "unet_evals": evals, "launches": launches,
             "launches_per_unet_eval": measured, "group_norm_launches": gn_launches,
-            "fwd_designs": designs,
+            "layer_norm_launches": ln_launches, "fwd_designs": designs,
             "images_shape": list(images.shape), "image_mean": float(images.mean()),
             "image_std": float(images.std()), "s_per_image": wall,
             "ms_per_sampling_step": loop_ms / k, "ms_per_unet_eval": loop_ms / evals,
@@ -1749,12 +1865,13 @@ def phase_sample(fa, sd, gn):
     return totals, measured
 
 
-def phase_sdxl_sample(fa, gn):
+def phase_sdxl_sample(fa, gn, ln):
     """`StableDiffusion(SDXL_MODEL).sample` at SDXL_SIZE px: SDXL_BATCH
     prompts, CFG SDXL_CFG_SCALE (zeros for the unconditional half),
     SDXL_STEPS-step DDIM. Flash launches per UNet evaluation (PER_STEP) and
     per decode (PER_VAE_CALL), GroupNorm launches (GN_PER_SDXL_UNET_EVAL an
-    evaluation, GN_PER_DECODE a decode), none from the two text towers, the
+    evaluation, GN_PER_DECODE a decode), LayerNorm launches
+    (LN_PER_SDXL_UNET_EVAL an evaluation), none from the two text towers, the
     images finite; seconds, ms a step and peak memory. Returns (launches,
     launches per UNet evaluation)."""
     import torch
@@ -1776,6 +1893,7 @@ def phase_sdxl_sample(fa, gn):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     gn.reset_launches()
+    ln.reset_launches()
     t0 = time.perf_counter()
     images = sd.sample(prompts, generator=torch.Generator(device="cuda").manual_seed(0),
                        **options)
@@ -1783,6 +1901,7 @@ def phase_sdxl_sample(fa, gn):
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
     gn_launches = dict(gn.GN_LAUNCHES)
+    ln_launches = dict(ln.LN_LAUNCHES)
     timer.remove()
     parts = {part: timer.launches(part) for part in timer.calls}
     measured = per_step(parts["sample_loop"], k)
@@ -1796,6 +1915,7 @@ def phase_sdxl_sample(fa, gn):
     gn_want = {"gn_stats": gn_calls, "gn_apply": gn_calls, "gn_bwd_sums": 0, "gn_bwd_dx": 0}
     if gn_launches != gn_want:
         raise AssertionError(f"sdxl_sample: GroupNorm launches {gn_launches}, want {gn_want}")
+    check_ln_launches("sdxl_sample", ln_launches, k, LN_PER_SDXL_UNET_EVAL)
     shape = (SDXL_BATCH, 3, SDXL_SIZE, SDXL_SIZE)
     if tuple(images.shape) != shape or not torch.isfinite(images).all():
         raise AssertionError(f"sdxl_sample: images {tuple(images.shape)} not finite")
@@ -1805,7 +1925,8 @@ def phase_sdxl_sample(fa, gn):
                          for part in sd.parts},
           "k": k, "launches": launches, "launches_per_unet_eval": measured,
           "fwd_designs": designs,
-          "group_norm_launches": gn_launches, "images_shape": list(images.shape),
+          "group_norm_launches": gn_launches, "layer_norm_launches": ln_launches,
+          "images_shape": list(images.shape),
           "image_mean": float(images.mean()), "image_std": float(images.std()),
           "s_per_call": wall, "ms_per_sampling_step": loop_ms / k,
           "text_encode_ms": timer.ms("conditioning"), "decode_ms": timer.ms("decode"),
@@ -4886,6 +5007,7 @@ def main() -> int:
     from perceptor_tpu_torch.ops import cuda_library
     from perceptor_tpu_torch.ops import flash_attention_kernel as fa
     from perceptor_tpu_torch.ops import groupnorm as gn
+    from perceptor_tpu_torch.ops import layernorm as ln
     from perceptor_tpu_torch.utils.bench_env import triton_imports
     from perceptor_tpu_torch.utils.flops import card_peaks
 
@@ -4908,6 +5030,7 @@ def main() -> int:
     errors = phase_kernels(fa)
     phase_kernel_info(fa, library)
     phase_group_norm(gn)
+    phase_layer_norm(ln)
     t0 = time.perf_counter()
     step = guided_step.build("sd-v1-512", device="cuda", seed=0)
     emit({"phase": "model_build", "ok": True, "seconds": time.perf_counter() - t0})
@@ -4923,7 +5046,8 @@ def main() -> int:
     sd = StableDiffusion(MODEL, device="cuda", seed=0)
     emit({"phase": "sd_build", "ok": True, "model": MODEL, "seconds": time.perf_counter() - t0})
     phase_group_norm_steps(gn, step, sd)
-    launches["sample"], measured["sample"] = phase_sample(fa, sd, gn)
+    phase_layer_norm_guided(ln, step)
+    launches["sample"], measured["sample"] = phase_sample(fa, sd, gn, ln)
     phase_sample_profile(sd)
     launches["sample_deepcache"], deepcache_measured = phase_sample_deepcache(fa, sd)
     measured.update(deepcache_measured)
@@ -4943,7 +5067,7 @@ def main() -> int:
     phase_parallel_collectives(fa)
     del sd
     torch.cuda.empty_cache()
-    launches["sdxl_sample"], measured["sdxl_sample"] = phase_sdxl_sample(fa, gn)
+    launches["sdxl_sample"], measured["sdxl_sample"] = phase_sdxl_sample(fa, gn, ln)
     # SD inpainting; its guided phase shares the guided step's loss
     t0 = time.perf_counter()
     sd = StableDiffusion(INPAINT_MODEL, device="cuda", seed=0)

@@ -23,6 +23,7 @@ from torch import nn
 
 from perceptor_tpu_torch.core.remat import Remat, set_remat
 from perceptor_tpu_torch.models.stable_diffusion.config import UNetConfig
+from perceptor_tpu_torch.ops import layernorm
 from perceptor_tpu_torch.ops.attention import attention
 from perceptor_tpu_torch.ops.conv_matmul import Conv3x3
 from perceptor_tpu_torch.ops.groupnorm import GroupNormSiLU
@@ -146,9 +147,33 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        if not self._fused(x):
+            x = x + self.attn1(self.norm1(x))
+            x = x + self.attn2(self.norm2(x), context)
+            return x + self.ff(self.norm3(x))
+        # the kernel reads whole rows: SD-1.x's 1x1 projection hands the first
+        # block NCHW memory viewed as (B, HW, C), copied here once
+        x, y = self._add_norm(self.norm1, x.contiguous())
+        x, y = self._add_norm(self.norm2, x, self.attn1(y))
+        x, y = self._add_norm(self.norm3, x, self.attn2(y, context))
+        return x + self.ff(y)
+
+    def _fused(self, x) -> bool:
+        """Whether the three norms run as `add_layer_norm`, which adds the
+        branch to the residual and writes the products' bf16 operand in one
+        kernel: where the residual and the products are bf16, the kernel
+        takes the width, and no gradient is taken (the op has no backward).
+        Otherwise each norm returns fp32 and each Linear casts it."""
+        products = (self.attn1.to_q, self.attn1.to_k, self.attn1.to_v, self.attn2.to_q,
+                    self.ff.net[0].proj)
+        return (x.dtype == torch.bfloat16
+                and all(p.weight.dtype == torch.bfloat16 for p in products)
+                and layernorm.takes_channels(x.shape[-1])
+                and not (torch.is_grad_enabled() and x.requires_grad))
+
+    @staticmethod
+    def _add_norm(norm, x, h=None):
+        return layernorm.add_layer_norm(x, h, norm.weight, norm.bias, norm.eps)
 
 
 class SpatialTransformer(Remat):
@@ -182,10 +207,10 @@ class SpatialTransformer(Remat):
                 x = self.proj_in(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
             for block in self.transformer_blocks:
                 x = block(x, context)
+            # the residual leads the add, so the output keeps its NCHW layout
             if self.linear:
-                # the residual leads the add, so the output keeps its NCHW layout
                 return residual + self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2)
-            return self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2)) + residual
+            return residual + self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2))
 
 
 class Downsample(nn.Module):

@@ -13,6 +13,7 @@ from pathlib import Path
 from perceptor_tpu_torch.ops import cuda_library
 from perceptor_tpu_torch.ops import flash_attention_kernel as fa
 from perceptor_tpu_torch.ops import groupnorm as gn
+from perceptor_tpu_torch.ops import layernorm as ln
 
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "perceptor_tpu_torch" / "csrc"
@@ -20,16 +21,17 @@ CSRC = REPO / "perceptor_tpu_torch" / "csrc"
 
 def test_every_entry_point_is_declared_once_and_the_name_follows_the_sources(tmp_path):
     """Each `extern "C"` function of csrc/*.cu has its argument types in
-    exactly one of the two op modules, which the library module holds; and
+    exactly one of the three op modules, which the library module holds; and
     editing any .cu or .cuh of a copy of csrc/ gives the library another
     path, so a build never loads a stale library."""
     entry_points = {
         name for src in CSRC.glob("*.cu")
         for name in re.findall(r'extern "C" int (\w+)\(', src.read_text())
     }
-    assert not fa._ARGTYPES.keys() & gn._ARGTYPES.keys()
-    assert fa._ARGTYPES.keys() | gn._ARGTYPES.keys() == entry_points
-    assert cuda_library._ARGTYPES == {**fa._ARGTYPES, **gn._ARGTYPES}
+    declared = [m._ARGTYPES.keys() for m in (fa, gn, ln)]
+    assert sum(len(names) for names in declared) == len(set().union(*declared))
+    assert set().union(*declared) == entry_points
+    assert cuda_library._ARGTYPES == {**fa._ARGTYPES, **gn._ARGTYPES, **ln._ARGTYPES}
 
     copy = tmp_path / "csrc"
     shutil.copytree(CSRC, copy)
